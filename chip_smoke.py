@@ -5,13 +5,19 @@
 
 Phase 1 builds the hand-written kernels from ``src/repro_torch/kernels/
 csrc`` with nvcc for sm_90a.  Phase 2 holds each kernel against its plain
-PyTorch version on the card at the main path's shapes (plus a GQA shape),
-in float32 and bfloat16, and times kernel, plain version and one library
-call with L2 flushed before each timed call.  Phase 3 serves ``run_synera`` and ``run_cloud_centric`` end to end
-with the paper's SLM/LLM pair at full width (random weights from a seed)
-and checks that every kernel of the path was launched.  Phase 4 runs the
-tiny pair in float32 twice -- through the kernels and through the plain
-attention paths -- and requires identical greedy token streams.
+PyTorch version on the card at the main path's shapes (plus GQA and
+window shapes; the paged kernels also at three split layouts), in
+float32 and bfloat16, and times kernel, plain version and one library
+call with L2 flushed before each timed call.  Phase 3 serves
+``run_synera`` and ``run_cloud_centric`` end to end with the paper's
+SLM/LLM pair at full width on the dense cache (random weights from a
+seed) and checks that every kernel of the path was launched.  Phase 4
+runs the tiny pair in float32 through the kernels and through the plain
+attention paths -- dense, and a paged engine that shares, retains and
+swaps on a small pool -- and requires identical greedy token streams.
+Phase 5 serves the full-width pair again on the paged cache (prefix
+sharing, retention, host swap, a pool too small for every stream) and
+checks that the paged kernels ran and the pool drained.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import signal
 import subprocess
 import sys
 import time
@@ -46,6 +53,12 @@ KERNEL_INFO = {
     "attn_with_importance": dict(
         source="src/repro_torch/kernels/csrc/attn_importance.cu",
         replaces="src/repro/kernels/attn_importance/attn_importance.py:74"),
+    "decode_attention_paged": dict(
+        source="src/repro_torch/kernels/csrc/decode_gqa.cu",
+        replaces="src/repro/kernels/decode_gqa/decode_gqa.py:207"),
+    "partial_prefill_attention_paged": dict(
+        source="src/repro_torch/kernels/csrc/partial_prefill.cu",
+        replaces="src/repro/kernels/partial_prefill/partial_prefill.py:204"),
 }
 
 
@@ -57,16 +70,30 @@ def kernel_modules():
     from repro_torch.kernels import attn_importance, decode_gqa, partial_prefill
     return {"decode_attention": decode_gqa,
             "partial_prefill_attention": partial_prefill,
-            "attn_with_importance": attn_importance}
+            "attn_with_importance": attn_importance,
+            "decode_attention_paged": decode_gqa,
+            "partial_prefill_attention_paged": partial_prefill}
+
+
+def _counter(name: str) -> str:
+    """Name of the launch counter of kernel ``name`` in its module."""
+    return "paged_launches" if name.endswith("_paged") else "launches"
 
 
 def reset_launches():
-    for mod in kernel_modules().values():
-        mod.launches = 0
+    for name, mod in kernel_modules().items():
+        setattr(mod, _counter(name), 0)
 
 
 def read_launches():
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+    return {name: getattr(mod, _counter(name))
+            for name, mod in kernel_modules().items()}
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +301,148 @@ def phase_kernels():
                 main[name] = rec
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version")
+    main.update(phase_paged_kernels())
+    return main
+
+
+# Paged kernels.  Shapes: (B, C, nh, nkv, hd, block size, max_bps, pool
+# blocks, fill lo, fill hi, window); C = 1 is decode.  Each slot's table
+# maps a ragged run of a random permutation of pool blocks (-1 tail), and
+# holds ~300 tokens as phase 5's streams do.  Split layouts (block_kv,
+# kv_splits): one-block steps, fused steps, fused + four splits (three of
+# them empty at this fill, so the merge sees empty splits).
+PAGED_VARIANTS = [(None, 1), (128, 1), (128, 4)]
+PAGED_MAIN = (128, 1)            # phase 5's CloudEngine(paged_block_kv, kv_splits)
+PAGED_CASES = [
+    ("decode_attention_paged", "cloud decode",
+     (8, 1, 32, 32, 128, 16, 128, 1024, 280, 320, 0), PAGED_VARIANTS, True),
+    ("partial_prefill_attention_paged", "cloud verify C=32",
+     (8, 32, 32, 32, 128, 16, 128, 1024, 280, 320, 0), PAGED_VARIANTS, True),
+    ("partial_prefill_attention_paged", "cloud prefill C=256",
+     (8, 256, 32, 32, 128, 16, 128, 1024, 280, 320, 0), PAGED_VARIANTS,
+     False),
+    ("decode_attention_paged", "gqa g=4",
+     (4, 1, 32, 8, 128, 16, 128, 1024, 280, 320, 0), [(128, 1), (128, 4)],
+     False),
+    ("partial_prefill_attention_paged", "gqa g=4",
+     (4, 16, 32, 8, 128, 16, 128, 1024, 280, 320, 0), [(128, 4)], False),
+    ("decode_attention_paged", "window 64",
+     (8, 1, 32, 32, 128, 16, 128, 1024, 280, 320, 64), [(128, 4)], False),
+    ("partial_prefill_attention_paged", "window 64",
+     (8, 32, 32, 32, 128, 16, 128, 1024, 280, 320, 64), [(128, 4)], False),
+]
+
+
+def _paged_case(name, shape, dtype, seed):
+    """Inputs for one paged kernel check, on the card."""
+    import torch
+    dev = "cuda"
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, C, nh, nkv, hd, bs, mbps, nb, lo, hi, window = shape
+
+    def randn(*s):
+        return torch.randn(*s, generator=g, device=dev).to(dtype)
+
+    pos = np.full((nb, bs), -1, np.int32)
+    bt = np.full((B, mbps), -1, np.int32)
+    qp = np.full((B, C), -1, np.int32)
+    perm = iter(rng.permutation(nb))
+    for b in range(B):
+        L = int(rng.integers(lo, hi))            # tokens in the pool
+        for j in range(-(-L // bs)):
+            blk = next(perm)
+            bt[b, j] = blk
+            n = min(bs, L - j * bs)
+            pos[blk, :n] = j * bs + np.arange(n)
+        nq = C if C in (1, 256) else int(rng.integers(1, C + 1))
+        qp[b, :nq] = L - nq + np.arange(nq)      # write-then-attend tail
+    a = dict(k_pool=randn(nb, bs, nkv, hd), v_pool=randn(nb, bs, nkv, hd),
+             pos_pool=torch.from_numpy(pos).to(dev),
+             block_tables=torch.from_numpy(bt).to(dev))
+    if name == "decode_attention_paged":
+        a.update(q=randn(B, nh, hd), q_pos=torch.from_numpy(qp[:, 0]).to(dev))
+    else:
+        a.update(q=randn(B, C, nh, hd), q_pos=torch.from_numpy(qp).to(dev))
+    return a, window
+
+
+def phase_paged_kernels():
+    """Each paged kernel against its plain version, at every split layout
+    of its cases; times kernel (L2 cold and warm), plain version and, as a
+    yardstick, the dense kernel on the same data gathered into a dense
+    cache (gather excluded).  No single PyTorch call reads a block table,
+    so the library time is none.  Returns the bf16 main-path records."""
+    import torch
+    from repro_torch.models import layers as L
+    mods = kernel_modules()
+    plain = {"decode_attention_paged":
+             mods["decode_attention_paged"].decode_attention_paged_ref,
+             "partial_prefill_attention_paged":
+             mods["partial_prefill_attention_paged"].partial_prefill_paged_ref}
+    dense = {"decode_attention_paged":
+             mods["decode_attention"].decode_attention,
+             "partial_prefill_attention_paged":
+             mods["partial_prefill_attention"].partial_prefill_attention}
+    main, ok = {}, True
+    for i, (name, label, shape, variants, is_main) in enumerate(PAGED_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            a, window = _paged_case(name, shape, dtype, seed=200 + i)
+            kd, vd, posd = L.paged_kv_view(
+                {"k": a["k_pool"], "v": a["v_pool"], "pos": a["pos_pool"],
+                 "block_tables": a["block_tables"]})
+            qd = a["q"]
+            dense_args = dict(q=qd, k=kd, v=vd, q_pos=a["q_pos"],
+                              kv_pos=posd, window=window)
+            valid = _valid(name.replace("_paged", ""),
+                           dict(kv_pos=posd, q_pos=a["q_pos"]))
+            if window:
+                qq = (a["q_pos"][:, None] if name.startswith("decode")
+                      else a["q_pos"])
+                valid = valid & ((qq[:, :, None] - posd[:, None, :])
+                                 < window)
+            n_mapped = int((a["block_tables"] >= 0).sum())
+            bs = a["pos_pool"].shape[1]
+            for blkv, splits in variants:
+                kw = dict(window=window, block_kv=blkv, kv_splits=splits)
+                kern = getattr(mods[name], name)
+                out_k = kern(**a, **kw)
+                out_p = plain[name](**a, **kw)
+                torch.cuda.synchronize()
+                atol, rtol = TOL[str(dtype)]
+                good = _close(out_k, out_p, atol, rtol)
+                pad = (a["q_pos"] < 0)
+                if not name.startswith("decode"):
+                    good = good and bool((out_k[pad] == 0).all())
+                err = float((out_k.float() - out_p.float()).abs().max())
+                nh, hd = qd.shape[-2], qd.shape[-1]
+                extra = ((a["q_pos"].numel() + a["block_tables"].numel()
+                          + n_mapped * bs) * 4)
+                nbytes, flops = _bytes_flops(
+                    qd, a["k_pool"], out_k.numel() * out_k.element_size(),
+                    valid, nh, hd, extra_bytes=extra)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_flops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+                rec = dict(
+                    name=name, case=label, dtype=str(dtype),
+                    shape=list(shape), block_kv=blkv, kv_splits=splits,
+                    ok=good, max_abs_err=err,
+                    ms=_time_ms(lambda: kern(**a, **kw)),
+                    ms_l2_warm=_time_ms(lambda: kern(**a, **kw), cold=False),
+                    plain_ms=_time_ms(lambda: plain[name](**a, **kw),
+                                      iters=5),
+                    dense_kernel_ms=_time_ms(
+                        lambda: dense[name](**dense_args)),
+                    library_ms=None, bound_ms=max(t_bytes, t_flops),
+                    bound_by="bytes" if t_bytes >= t_flops else
+                    "operations")
+                log("[kernels] " + json.dumps(rec))
+                ok = ok and good
+                if (is_main and dtype == torch.bfloat16
+                        and (blkv, splits) == PAGED_MAIN):
+                    main[name] = rec
+    if not ok:
+        raise RuntimeError("a paged kernel disagrees with its plain version")
     return main
 
 
@@ -339,7 +508,9 @@ def outputs_sha(outputs) -> str:
         [[int(t) for t in o] for o in outputs]).encode()).hexdigest()[:16]
 
 
-def phase_full_width():
+def phase_full_width(state):
+    """Dense-cache main path at full width.  Leaves the bf16 weights, the
+    prompts and their outputs in ``state`` for phase 5."""
     import torch
     from repro_torch.configs.synera_pair import SYNERA_LLM, SYNERA_SLM
     from repro_torch.core.offload import OffloadPolicy
@@ -395,7 +566,8 @@ def phase_full_width():
     for o in res.outputs:
         if len(o) != max_new or not all(0 <= t < llm_cfg.vocab for t in o):
             raise RuntimeError(f"bad run_synera output {o}")
-    missing = [k for k, n in synera_launches.items() if n == 0]
+    missing = [k for k, n in synera_launches.items()
+               if n == 0 and not k.endswith("_paged")]
     if missing:
         raise RuntimeError(f"main path never launched {missing}")
 
@@ -438,7 +610,10 @@ def phase_full_width():
         f"max|diff|={float((lk - lp).abs().max()):.4f}")
     if not bool(torch.isfinite(lk).all()) or cos < 0.99:
         raise RuntimeError("full-width forward disagrees with plain path")
-    del eng, dev, llm_p, slm_p
+    state.update(slm_cfg=slm_cfg, llm_cfg=llm_cfg, slm_p=slm_p, llm_p=llm_p,
+                 prompts=prompts[:4], outputs=res.outputs[:4],
+                 device="cuda")
+    del eng, dev                    # frees the dense cache
     torch.cuda.empty_cache()
     return synera_launches
 
@@ -447,7 +622,7 @@ def phase_full_width():
 # Phase 4: tiny pair, kernels vs plain paths, token identity
 # ---------------------------------------------------------------------------
 
-def phase_tiny_identity():
+def phase_tiny_identity(device="cuda"):
     from repro_torch.configs.synera_pair import tiny_pair
     from repro_torch.core.offload import OffloadPolicy
     from repro_torch.models import model as M
@@ -456,8 +631,8 @@ def phase_tiny_identity():
     from repro_torch.serving.engine import CloudEngine
 
     slm_cfg, llm_cfg = tiny_pair(vocab=64)
-    slm_p = M.init_params(slm_cfg, seed=0, device="cuda")
-    llm_p = M.init_params(llm_cfg, seed=1, device="cuda")
+    slm_p = M.init_params(slm_cfg, seed=0, device=device)
+    llm_p = M.init_params(llm_cfg, seed=1, device=device)
     prompts = [[1, 2, 3, 4, 5, 6, 7, 8], [8, 7, 6, 5, 4, 3, 2, 1], [5, 9]]
     shas = {}
     for impl in ("pallas", "plain"):
@@ -465,10 +640,10 @@ def phase_tiny_identity():
                              else "naive")
         lc = llm_cfg.replace(attn_impl="pallas" if impl == "pallas"
                              else "blocked")
-        dev = DeviceRuntime(sc, slm_p, gamma=4, s_max=256, device="cuda",
+        dev = DeviceRuntime(sc, slm_p, gamma=4, s_max=256, device=device,
                             policy=OffloadPolicy(c_th=0.8, i_th=0.04,
                                                  mode="both"))
-        eng = CloudEngine(lc, llm_p, max_slots=4, s_max=256, device="cuda")
+        eng = CloudEngine(lc, llm_p, max_slots=4, s_max=256, device=device)
         r1 = SY.run_synera(dev, eng, prompts, 24, concurrency=2)
         r2 = SY.run_cloud_centric(eng, prompts[:1], 12)
         shas[impl] = (outputs_sha(r1.outputs), outputs_sha(r2.outputs))
@@ -478,8 +653,220 @@ def phase_tiny_identity():
     if shas["pallas"] != shas["plain"]:
         raise RuntimeError(f"token streams differ: {shas}")
 
+    # a paged engine that shares, retains and swaps on a pool too small
+    # for its streams, through the kernels, against the dense engine on
+    # the plain paths; the last prompt shares the first one's prefix
+    prompts = prompts + [prompts[0] + [10, 11, 12]]
+    runs = {}
+    for impl, kw in (("plain dense", {}),
+                     ("pallas paged", dict(
+                         cache_impl="paged", block_size=4, pool_blocks=8,
+                         share_prefix=True, retain_prefix=True, swap=True))):
+        pallas = impl.startswith("pallas")
+        sc = slm_cfg.replace(attn_impl="pallas" if pallas else "naive")
+        lc = llm_cfg.replace(attn_impl="pallas" if pallas else "blocked")
+        dev = DeviceRuntime(sc, slm_p, gamma=4, s_max=256, device=device,
+                            policy=OffloadPolicy(c_th=0.8, i_th=0.04,
+                                                 mode="both"))
+        eng = CloudEngine(lc, llm_p, max_slots=4, s_max=256, device=device,
+                          **kw)
+        r1 = SY.run_synera(dev, eng, prompts, 24, concurrency=4)
+        r2 = SY.run_cloud_centric(eng, prompts[:1], 12)
+        runs[impl] = (outputs_sha(r1.outputs), outputs_sha(r2.outputs))
+        st = r1.extras["scheduler"]
+        log(f"[tiny] {impl}: run_synera sha {runs[impl][0]}, "
+            f"run_cloud_centric sha {runs[impl][1]}; " + json.dumps(
+                {k: st[k] for k in ("preemptions", "swap_evictions",
+                                    "dedupe_hit_blocks", "cow_copies",
+                                    "swap_out_bytes", "swap_in_bytes")}))
+        if pallas:
+            pool = eng.pool_stats
+            if pool["free_blocks"] + pool["cached_free_blocks"] != \
+                    pool["n_blocks"]:
+                raise RuntimeError(f"tiny paged engine leaked blocks: {pool}")
+    if runs["pallas paged"] != runs["plain dense"]:
+        raise RuntimeError(f"paged token streams differ: {runs}")
+
 
 # ---------------------------------------------------------------------------
+# Phase 5: the paged cloud path at full width
+# ---------------------------------------------------------------------------
+
+SYSTEM_TOKENS = 64               # shared system prompt: 4 full 16-token blocks
+PAGED_POOL_BLOCKS = 46           # wave 1 needs 44 at admission, 56 at the end
+
+
+def host_link_gbps(nbytes: int = 256 << 20, reps: int = 5) -> float:
+    """Measured device-to-host copy rate into pinned memory (GB/s): the
+    link the host swap tier moves blocks over."""
+    import torch
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst.copy_(src)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dst.copy_(src)
+    torch.cuda.synchronize()
+    return reps * nbytes / (time.perf_counter() - t0) / 1e9
+
+
+def phase_paged_full_width(state):
+    """``run_synera`` and ``run_cloud_centric`` on a paged engine with
+    prefix sharing, retention and host swap, reusing phase 3's weights.
+    Wave 1: phase 3's four prompts behind one shared system prompt; wave
+    2: two new prompts behind the same system prompt; then one
+    cloud-centric stream.  Returns the launches of the path."""
+    import torch
+    from repro_torch.core.offload import OffloadPolicy
+    from repro_torch.serving import device as device_mod
+    from repro_torch.serving import synergy as SY
+    from repro_torch.serving.device import DeviceRuntime
+    from repro_torch.serving.engine import CloudEngine
+    from repro_torch.serving.link import CloudLatencyModel
+
+    dev_type = state["device"]
+    slm_cfg, llm_cfg = state["slm_cfg"], state["llm_cfg"]
+    rng = np.random.default_rng(5)
+    system = rng.integers(1, slm_cfg.vocab, SYSTEM_TOKENS).tolist()
+    wave1 = [system + p for p in state["prompts"]]
+    wave2 = [system + rng.integers(1, slm_cfg.vocab, n).tolist()
+             for n in (96, 160)]
+    max_new = 32
+    bs, max_slots, s_max = 16, 8, 2048
+    # final length of a wave-1 stream: prompt + max_new + one verify
+    # chunk of gamma + 1 rows; the shared system blocks count once
+    final = [-(-(len(p) + max_new + 5) // bs) for p in wave1]
+    shared = SYSTEM_TOKENS // bs
+    distinct = sum(final) - shared * (len(wave1) - 1)
+    P = PAGED_POOL_BLOCKS
+    if P >= distinct:
+        raise RuntimeError(f"pool of {P} blocks holds all of wave 1's "
+                           f"{distinct} final blocks: nothing to preempt")
+    t0 = time.perf_counter()
+    dev = DeviceRuntime(slm_cfg, state["slm_p"], s_max=512, gamma=4,
+                        policy=OffloadPolicy(mode="all"), device=dev_type)
+    eng = CloudEngine(llm_cfg, state["llm_p"], max_slots=max_slots,
+                      s_max=s_max, cache_impl="paged", block_size=bs,
+                      paged_block_kv=128, kv_splits=1, share_prefix=True,
+                      retain_prefix=True, swap=True, pool_blocks=P,
+                      device=dev_type)
+    _sync(dev_type)
+    log(f"[paged] init {time.perf_counter() - t0:.3f} s; pool {P} blocks "
+        f"of {bs} tokens ({P * eng.block_bytes() / 2**30:.2f} GiB; wave 1 "
+        f"ends on {distinct} distinct blocks)")
+    # The scheduler chooses swap or recompute eviction on its modeled
+    # clock.  At the default 6 GB/s host link a full-width victim's swap
+    # round trip costs more than refeeding one chunk, so every eviction
+    # would recompute; under retain_prefix a recompute-evicted stream
+    # re-adopts its own retained blocks, frees nothing, and the
+    # scheduler (the reference's, carried over whole) livelocks (ROADMAP
+    # queue 3, R3).  The clock models this host's measured link instead.
+    link = host_link_gbps()
+    latency = CloudLatencyModel(host_link_gbps=link)
+    log(f"[paged] modeled host link: {link:.2f} GB/s (pinned D2H, "
+        f"measured)")
+
+    timer = HostTimer()
+    timer.wrap(dev, "_one_token", "device SLM token step")
+    timer.wrap(dev, "_prefill", "device prompt feed")
+    timer.wrap(device_mod.EE, "pick_exit_layer", "early-exit pick (host)")
+    for name in ("feed", "prefill"):
+        timer.wrap(eng, name, f"cloud engine.{name}")
+    timer.wrap(eng.swap_manager, "swap_out", "host swap out")
+    timer.wrap(eng.swap_manager, "swap_in", "host swap in")
+    # the device feeds a prompt at a modeled cost per token before it
+    # reaches the cloud, so a shorter prompt starts that much later: all
+    # four streams are admitted together and grow together, and the pool
+    # must preempt (through swap: the round trip is modeled far cheaper
+    # than a refeed) before they reach their final lengths
+    longest = max(len(p) for p in wave1)
+    arrivals = [(longest - len(p)) * dev.latency.ms_per_token for p in wave1]
+    reset_launches()
+    _sync(dev_type)
+    t0 = time.perf_counter()
+    r1 = SY.run_synera(dev, eng, wave1, max_new, concurrency=4,
+                       arrivals=arrivals, latency=latency)
+    _sync(dev_type)
+    wall1 = time.perf_counter() - t0
+    st1 = dict(r1.extras["scheduler"])
+    t0 = time.perf_counter()
+    r2 = SY.run_synera(dev, eng, wave2, max_new, concurrency=2,
+                       latency=latency)
+    _sync(dev_type)
+    wall2 = time.perf_counter() - t0
+    timer.restore()
+    st2 = dict(r2.extras["scheduler"])
+    t0 = time.perf_counter()
+    rc = SY.run_cloud_centric(eng, wave1[:1], 8)
+    _sync(dev_type)
+    wall_c = time.perf_counter() - t0
+    launches = read_launches()
+
+    n1 = sum(len(o) for o in r1.outputs)
+    n2 = sum(len(o) for o in r2.outputs)
+    log("[paged] host time by part, both waves (s): " + json.dumps(
+        {k: round(v, 3) for k, v in timer.seconds.items()}))
+    log(f"[paged] wave 1: {len(wave1)} prompts, {n1} tokens in {wall1:.2f} s "
+        f"wall ({n1 / wall1:.1f} tokens/s); sha {outputs_sha(r1.outputs)}")
+    log(f"[paged] wave 2: {len(wave2)} prompts, {n2} tokens in {wall2:.2f} s "
+        f"wall ({n2 / wall2:.1f} tokens/s); sha {outputs_sha(r2.outputs)}")
+    log(f"[paged] run_cloud_centric: 8 tokens in {wall_c:.2f} s wall")
+    keys = ("iterations", "prefill_iterations", "verify_iterations",
+            "mean_verify_occupancy", "preemptions", "swap_evictions",
+            "recompute_evictions", "admission_swaps", "prefill_fed_tokens",
+            "dedupe_hit_blocks", "revived_blocks", "reclaimed_blocks",
+            "swap_out_bytes", "swap_in_bytes", "peak_used_blocks")
+    log("[paged] wave 1 scheduler: " + json.dumps({k: st1[k] for k in keys}))
+    log("[paged] wave 2 scheduler: " + json.dumps({k: st2[k] for k in keys}))
+    agree = sum(int(a == b) for o, d in zip(r1.outputs, state["outputs"])
+                for a, b in zip(o, d))
+    log(f"[paged] wave-1 tokens equal to phase 3's dense run of the same "
+        f"prompts without the system prompt: {agree} of {n1}")
+    log(f"[paged] launches {json.dumps(launches)}")
+
+    pool = eng.pool_stats
+    log("[paged] pool at the end: " + json.dumps(
+        {k: pool[k] for k in ("n_blocks", "free_blocks", "cached_free_blocks",
+                              "used_blocks", "swapped_blocks",
+                              "dedupe_hit_blocks", "revived_blocks",
+                              "swap_out_bytes", "swap_in_bytes")}))
+    for outs, n in ((r1.outputs, max_new), (r2.outputs, max_new),
+                    (rc.outputs, 8)):
+        for o in outs:
+            if len(o) != n or not all(0 <= t < llm_cfg.vocab for t in o):
+                raise RuntimeError(f"bad paged output {o}")
+    checks = {
+        "paged decode kernel launched":
+            launches["decode_attention_paged"] > 0,
+        "paged partial-prefill kernel launched":
+            launches["partial_prefill_attention_paged"] > 0,
+        "prefix dedupe hits": st1["dedupe_hit_blocks"] > 0,
+        "wave 2 revived retained blocks":
+            st2["revived_blocks"] > st1["revived_blocks"],
+        "a preemption went through swap": st1["swap_evictions"] > 0,
+        "swap-out bytes": pool["swap_out_bytes"] > 0,
+        "swap-in bytes": pool["swap_in_bytes"] > 0,
+        "no leaked blocks": (pool["free_blocks"] + pool["cached_free_blocks"]
+                             == pool["n_blocks"]),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"paged full-width run failed: {failed}")
+    del eng, dev
+    if dev_type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+PHASE_LIMIT_S = 450              # a phase that runs longer is hung
+
+
+def _phase_timeout(signum, frame):
+    raise TimeoutError(f"phase still running after {PHASE_LIMIT_S} s")
+
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -501,19 +888,29 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    main_recs, launches = {}, {}
+    main_recs, launches, state = {}, {}, {}
+    paged = ("decode_attention_paged", "partial_prefill_attention_paged")
     t_start = time.perf_counter()
+    signal.signal(signal.SIGALRM, _phase_timeout)
     try:
         for p, fn in ((1, phase_build), (2, phase_kernels),
-                      (3, phase_full_width), (4, phase_tiny_identity)):
+                      (3, lambda: phase_full_width(state)),
+                      (4, phase_tiny_identity),
+                      (5, lambda: phase_paged_full_width(state))):
             t0 = time.perf_counter()
+            signal.alarm(PHASE_LIMIT_S)
             out = fn()
+            signal.alarm(0)
             if p == 2:
                 main_recs = out
-            if p == 3:
-                launches = out
+            if p == 3:          # the dense main path's launches
+                launches.update({k: v for k, v in out.items()
+                                 if k not in paged})
+            if p == 5:          # the paged cloud path's launches
+                launches.update({k: out[k] for k in paged})
             log(f"[phase {p}] ok in {time.perf_counter() - t0:.1f} s")
     except Exception as e:  # report which phase failed, then exit non-zero
+        signal.alarm(0)
         import traceback
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

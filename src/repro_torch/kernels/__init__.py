@@ -1,9 +1,11 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 One module per kernel of the reference's ``repro/kernels`` that this port
-carries (``decode_gqa``, ``partial_prefill``, ``attn_importance``).  Each
-holds the kernel's wrapper, its plain PyTorch version and a ``launches``
-counter.  The wrapper takes the plain version only for tensors on the
+carries (``decode_gqa``, ``partial_prefill``, ``attn_importance``; the
+first two hold a dense and a paged entry point, and ``paged`` the
+block-table layout arithmetic and split merge both share).  Each entry
+point has its wrapper, its plain PyTorch version and a launch counter.
+The wrapper takes the plain version only for tensors on the
 CPU; for a CUDA tensor it launches the CUDA kernel (``csrc/``, built by
 ``build.py`` at first use) or raises.
 """

@@ -24,13 +24,21 @@ KERNELS = ("decode_gqa", "partial_prefill", "attn_importance")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C signatures: every pointer (and the stream) is a c_void_p, every size
-# a c_int; each entry returns cudaGetLastError() as an int
+# C entry points of each library: every pointer (and the stream) is a
+# c_void_p, every size a c_int; each returns cudaGetLastError() as an int
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "decode_gqa_launch": [_P] * 6 + [_I] * 7 + [_P],
-    "partial_prefill_launch": [_P] * 6 + [_I] * 8 + [_P],
-    "attn_importance_launch": [_P] * 7 + [_I] * 8 + [_P],
+    "decode_gqa": {
+        "decode_gqa_launch": [_P] * 6 + [_I] * 7 + [_P],
+        "decode_gqa_paged_launch": [_P] * 10 + [_I] * 10 + [_P],
+    },
+    "partial_prefill": {
+        "partial_prefill_launch": [_P] * 6 + [_I] * 8 + [_P],
+        "partial_prefill_paged_launch": [_P] * 10 + [_I] * 11 + [_P],
+    },
+    "attn_importance": {
+        "attn_importance_launch": [_P] * 7 + [_I] * 8 + [_P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -111,8 +119,9 @@ def library(name: str) -> ctypes.CDLL:
     if job is not None:
         _finish(name, job)
     lib = ctypes.CDLL(str(_lib_path(name)))
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = SIGNATURES[f"{name}_launch"]
-    fn.restype = ctypes.c_int
+    for fname, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fname)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     _libs[name] = lib
     return lib

@@ -1,9 +1,13 @@
-"""GQA decode attention: one query token per slot over a dense KV cache.
+"""GQA decode attention: one query token per slot over the KV cache.
 
-Port of ``repro/kernels/decode_gqa/decode_gqa.py:decode_attention``.  The
-CUDA kernel is ``csrc/decode_gqa.cu``; :func:`decode_attention_ref` is its
-plain PyTorch version (the reference's ``ref.py`` with the kernel's
-``l == 0 -> 1`` guard, so a query with no valid key gives 0).
+Port of ``repro/kernels/decode_gqa/decode_gqa.py``: ``decode_attention``
+over a dense cache and ``decode_attention_paged`` over the shared block
+pool through per-slot block tables.  Both CUDA kernels are one templated
+tile loop in ``csrc/decode_gqa.cu``.  :func:`decode_attention_ref` is the
+dense plain version (the reference's ``ref.py`` with the kernel's
+``l == 0 -> 1`` guard, so a query with no valid key gives 0);
+:func:`decode_attention_paged_ref` the paged one (per-split partials
+merged by ``paged.combine_splits``, as the reference kernel does).
 """
 from __future__ import annotations
 
@@ -13,8 +17,11 @@ import torch
 
 from repro_torch.kernels import (NEG_INF, build, check_kernel_inputs, on_cpu,
                                  raise_on_error, stream_ptr)
+from repro_torch.kernels import paged as PG
 
-launches = 0   # kernel launches since the last reset (plain calls excluded)
+# kernel launches since the last reset (plain calls excluded)
+launches = 0          # decode_attention
+paged_launches = 0    # decode_attention_paged
 
 
 def decode_attention_ref(q, k, v, q_pos, kv_pos, *, window: int = 0):
@@ -60,4 +67,50 @@ def decode_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
              int(window), code, stream_ptr(q))
     raise_on_error("decode_attention", err)
     launches += 1
+    return out
+
+
+def decode_attention_paged_ref(q, k_pool, v_pool, q_pos, pos_pool,
+                               block_tables, *, window: int = 0,
+                               block_kv: int | None = None,
+                               kv_splits: int = 1):
+    """q: (B, nh, hd); k_pool, v_pool: (nb, bs, nkv, hd); q_pos: (B,);
+    pos_pool: (nb, bs), -1 = invalid row; block_tables: (B, max_bps), -1
+    = unmapped.  Returns (B, nh, hd) in q's dtype."""
+    out = PG.paged_attention_ref(q[:, None], k_pool, v_pool, q_pos[:, None],
+                                 pos_pool, block_tables, window=window,
+                                 block_kv=block_kv, kv_splits=kv_splits)
+    return out[:, 0]
+
+
+def decode_attention_paged(q, k_pool, v_pool, q_pos, pos_pool, block_tables,
+                           *, window: int = 0, block_kv: int | None = None,
+                           kv_splits: int = 1):
+    """Same contract as :func:`decode_attention_paged_ref`; launches the
+    CUDA kernel for CUDA tensors.  ``(block_kv, kv_splits)`` cut the table
+    into the reference's split ranges (``paged.fused_layout``); with more
+    than one split the kernel writes f32 partials and a second kernel
+    merges them in split order."""
+    global paged_launches
+    args = (q, k_pool, v_pool, q_pos, pos_pool, block_tables)
+    if on_cpu(*args):
+        return decode_attention_paged_ref(*args, window=window,
+                                          block_kv=block_kv,
+                                          kv_splits=kv_splits)
+    B, nh, hd = q.shape
+    nb, bs, nkv, _ = k_pool.shape
+    PG.check_paged_inputs("decode_attention_paged", *args, (B,))
+    code = check_kernel_inputs("decode_attention_paged", (q, k_pool, v_pool),
+                               (q_pos, pos_pool, block_tables))
+    max_bps = block_tables.shape[1]
+    fuse, splits, spb = PG.fused_layout(max_bps, bs, block_kv, kv_splits)
+    out = torch.empty_like(q)
+    ws = PG.split_workspace(B * nkv, splits, nh // nkv, hd, q.device)
+    fn = build.library("decode_gqa").decode_gqa_paged_launch
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             q_pos.data_ptr(), pos_pool.data_ptr(), block_tables.data_ptr(),
+             out.data_ptr(), *PG.workspace_ptrs(ws), B, nh, nkv, hd, bs,
+             max_bps, splits, spb * fuse, int(window), code, stream_ptr(q))
+    raise_on_error("decode_attention_paged", err)
+    paged_launches += 1
     return out

@@ -1,10 +1,12 @@
-"""Chunked (partial) prefill attention over a dense KV cache.
+"""Chunked (partial) prefill attention over the KV cache.
 
-Port of ``repro/kernels/partial_prefill/partial_prefill.py:
-partial_prefill_attention``.  The CUDA kernel is
-``csrc/partial_prefill.cu``; :func:`partial_prefill_ref` is its plain
-PyTorch version (the reference's ``ref.py``: padded query rows, q_pos =
--1, come out as 0).
+Port of ``repro/kernels/partial_prefill/partial_prefill.py``:
+``partial_prefill_attention`` over a dense cache and
+``partial_prefill_attention_paged`` over the shared block pool through
+per-slot block tables.  Both CUDA kernels are one templated tile loop in
+``csrc/partial_prefill.cu``.  :func:`partial_prefill_ref` is the dense
+plain version (the reference's ``ref.py``: padded query rows, q_pos = -1,
+come out as 0); :func:`partial_prefill_paged_ref` the paged one.
 """
 from __future__ import annotations
 
@@ -14,8 +16,11 @@ import torch
 
 from repro_torch.kernels import (NEG_INF, build, check_kernel_inputs, on_cpu,
                                  raise_on_error, stream_ptr)
+from repro_torch.kernels import paged as PG
 
-launches = 0   # kernel launches since the last reset (plain calls excluded)
+# kernel launches since the last reset (plain calls excluded)
+launches = 0          # partial_prefill_attention
+paged_launches = 0    # partial_prefill_attention_paged
 
 
 def partial_prefill_ref(q, k, v, q_pos, kv_pos, *, window: int = 0):
@@ -65,4 +70,49 @@ def partial_prefill_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
              int(window), code, stream_ptr(q))
     raise_on_error("partial_prefill_attention", err)
     launches += 1
+    return out
+
+
+def partial_prefill_paged_ref(q, k_pool, v_pool, q_pos, pos_pool,
+                              block_tables, *, window: int = 0,
+                              block_kv: int | None = None,
+                              kv_splits: int = 1):
+    """q: (B, C, nh, hd); k_pool, v_pool: (nb, bs, nkv, hd); q_pos: (B,
+    C), -1 = padded row; pos_pool: (nb, bs); block_tables: (B, max_bps),
+    -1 = unmapped.  Returns (B, C, nh, hd) in q's dtype."""
+    return PG.paged_attention_ref(q, k_pool, v_pool, q_pos, pos_pool,
+                                  block_tables, window=window,
+                                  block_kv=block_kv, kv_splits=kv_splits)
+
+
+def partial_prefill_attention_paged(q, k_pool, v_pool, q_pos, pos_pool,
+                                    block_tables, *, window: int = 0,
+                                    block_kv: int | None = None,
+                                    kv_splits: int = 1):
+    """Same contract as :func:`partial_prefill_paged_ref`; launches the
+    CUDA kernel for CUDA tensors (split partials merged by a second
+    kernel when the layout has more than one split)."""
+    global paged_launches
+    args = (q, k_pool, v_pool, q_pos, pos_pool, block_tables)
+    if on_cpu(*args):
+        return partial_prefill_paged_ref(*args, window=window,
+                                         block_kv=block_kv,
+                                         kv_splits=kv_splits)
+    B, C, nh, hd = q.shape
+    nb, bs, nkv, _ = k_pool.shape
+    PG.check_paged_inputs("partial_prefill_attention_paged", *args, (B, C))
+    code = check_kernel_inputs("partial_prefill_attention_paged",
+                               (q, k_pool, v_pool),
+                               (q_pos, pos_pool, block_tables))
+    max_bps = block_tables.shape[1]
+    fuse, splits, spb = PG.fused_layout(max_bps, bs, block_kv, kv_splits)
+    out = torch.empty_like(q)
+    ws = PG.split_workspace(B * nkv, splits, (nh // nkv) * C, hd, q.device)
+    fn = build.library("partial_prefill").partial_prefill_paged_launch
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             q_pos.data_ptr(), pos_pool.data_ptr(), block_tables.data_ptr(),
+             out.data_ptr(), *PG.workspace_ptrs(ws), B, C, nh, nkv, hd, bs,
+             max_bps, splits, spb * fuse, int(window), code, stream_ptr(q))
+    raise_on_error("partial_prefill_attention_paged", err)
+    paged_launches += 1
     return out

@@ -10,8 +10,8 @@ Conventions (as in the reference):
 * ``forward(...)`` returns ``(logits, cache, importance, aux_loss)``;
 * ``window`` > 0 enables sliding-window attention over a circular cache.
 
-Only ``family="dense"`` with ``cache_impl="dense"`` is ported so far; the
-other families and the paged cache raise ``NotImplementedError``.
+Only ``family="dense"`` is ported so far, with a dense or a paged cache;
+the other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,13 +29,10 @@ def torch_dtype(cfg) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
-def _check_ported(cfg, cache_impl: str = "dense"):
+def _check_ported(cfg):
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (dense only)")
-    if cache_impl != "dense":
-        raise NotImplementedError(
-            "cache_impl='paged' arrives with the next slice of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -93,14 +90,48 @@ def init_params(cfg, seed: int = 0, *, device=None):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
+               block_size: int | None = None, pool_blocks: int | None = None,
                device=None):
-    """Dense serving cache: one contiguous (batch, s_max) buffer per layer
-    (``s_max`` is the attention buffer length), positions -1 = empty."""
+    """Serving cache.  ``s_max`` is the attention buffer length (the
+    sliding window size for long-context decode); positions -1 = empty.
+
+    ``cache_impl`` (default ``cfg.cache_impl``) selects the layout:
+
+    * ``"dense"`` -- one contiguous (batch, s_max) buffer per layer.
+    * ``"paged"`` -- a shared pool of ``pool_blocks`` blocks of
+      ``block_size`` tokens (default ``cfg.kv_block_size``) per layer,
+      plus one (batch, s_max / block_size) int32 ``block_tables`` map
+      shared by every layer (-1 = unmapped).  ``pool_blocks`` defaults
+      to dense capacity; serving engines pass a smaller pool and page
+      slots on demand (``serving/engine.BlockAllocator``).  Only
+      kv_stack families page: SSM/conv states have nothing to page.
+    """
     impl = cache_impl or getattr(cfg, "cache_impl", "dense")
-    _check_ported(cfg, impl)
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
-    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    n, nkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if impl == "paged":
+        bs = block_size or cfg.kv_block_size
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                f"cache_impl='paged' supports dense/moe families (pure "
+                f"kv_stack caches); got {cfg.family!r}")
+        _check_ported(cfg)
+        if s_max % bs:
+            raise ValueError(f"s_max {s_max} not divisible by "
+                             f"kv block size {bs}")
+        max_bps = s_max // bs                 # blocks per slot
+        nb = pool_blocks if pool_blocks is not None else batch * max_bps
+        return {"layers": {
+            "k": torch.zeros((n, nb, bs, nkv, hd), dtype=dt, device=dev),
+            "v": torch.zeros((n, nb, bs, nkv, hd), dtype=dt, device=dev),
+            "pos": torch.full((n, nb, bs), -1, dtype=torch.int32,
+                              device=dev),
+            "block_tables": torch.full((batch, max_bps), -1,
+                                       dtype=torch.int32, device=dev),
+        }}
+    _check_ported(cfg)
+    shape = (n, batch, s_max, nkv, hd)
     return {"layers": {
         "k": torch.zeros(shape, dtype=dt, device=dev),
         "v": torch.zeros(shape, dtype=dt, device=dev),
@@ -109,9 +140,82 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
 
 
 def layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked parameter or cache tree (views)."""
-    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+    """Layer ``i`` of a stacked parameter or cache tree (views).  A paged
+    cache's ``block_tables`` has no layer axis and is shared as is."""
+    return {k: layer_slice(v, i) if isinstance(v, dict)
+            else v if k == "block_tables" else v[i]
             for k, v in tree.items()}
+
+
+def paged_stacks(cache):
+    """Every paged kv stack of a cache tree (the dicts holding a
+    ``block_tables`` leaf), in tree order."""
+    if L.is_paged(cache):
+        return [cache]
+    return [s for v in cache.values() if isinstance(v, dict)
+            for s in paged_stacks(v)]
+
+
+def copy_cache_blocks(cache, src, dst):
+    """Copy-on-write fork over a whole paged cache: clone pool blocks
+    ``src[i] -> dst[i]`` in place in every paged kv stack (k/v/pos
+    together; the block table is untouched -- the allocator already
+    rewrote the writer's entry)."""
+    for st in paged_stacks(cache):
+        L.cache_copy_blocks(st, src, dst)
+    return cache
+
+
+def copy_cache_block_rows(cache, src, dst, rows):
+    """Partial-block tail copy over a whole paged cache: clone the first
+    ``rows[i]`` token rows of pool block ``src[i]`` into ``dst[i]`` in
+    every paged kv stack."""
+    for st in paged_stacks(cache):
+        L.cache_copy_block_rows(st, src, dst, rows)
+    return cache
+
+
+def _payload_tree(cache, fn):
+    """Apply ``fn`` to every paged kv stack; returns the payload tree
+    (the cache's structure, holding only the gathered stacks)."""
+    if L.is_paged(cache):
+        return fn(cache)
+    return {k: _payload_tree(v, fn) for k, v in cache.items()
+            if isinstance(v, dict)}
+
+
+def peek_cache_blocks(cache, blocks):
+    """Read-only gather over a whole paged cache: pool blocks
+    ``blocks[i]`` (k/v/pos) of every paged kv stack, copied, without
+    invalidating them.  Same payload structure as :func:`swap_out_blocks`
+    (so :func:`swap_in_blocks` can restore it)."""
+    return _payload_tree(cache, lambda st: L.cache_peek_blocks(st, blocks))
+
+
+def swap_out_blocks(cache, blocks):
+    """Host-swap gather over a whole paged cache: copy pool blocks
+    ``blocks[i]`` out of every paged kv stack and invalidate their pool
+    positions in place.  Returns ``(payload, cache)``."""
+    payload = _payload_tree(
+        cache, lambda st: L.cache_gather_blocks(st, blocks)[0])
+    return payload, cache
+
+
+def swap_in_blocks(cache, blocks, payload):
+    """Host-swap scatter over a whole paged cache: restore a payload from
+    :func:`swap_out_blocks` / :func:`peek_cache_blocks` into pool blocks
+    ``blocks[i]`` of every paged kv stack, in place, bit-identical."""
+
+    def walk(c, p):
+        if L.is_paged(c):
+            L.cache_scatter_blocks(c, blocks, p)
+            return
+        for k, v in c.items():
+            if isinstance(v, dict):
+                walk(v, p[k])
+
+    walk(cache, payload)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +245,12 @@ def forward(cfg, params, tokens, positions, cache=None, *, window: int = 0,
     h = params["embed"][tokens]
     windex = None
     if cache is not None:
-        windex = L.cache_write_index(positions, cache["layers"]["k"].shape[2])
+        lc = cache["layers"]
+        if L.is_paged(lc):
+            windex = L.paged_write_index(positions, lc["block_tables"],
+                                         lc["k"].shape[2])
+        else:
+            windex = L.cache_write_index(positions, lc["k"].shape[2])
     imps = []
     for i in range(cfg.n_layers):
         lc = layer_slice(cache["layers"], i) if cache is not None else None
