@@ -17,7 +17,15 @@ attention paths -- dense, and a paged engine that shares, retains and
 swaps on a small pool -- and requires identical greedy token streams.
 Phase 5 serves the full-width pair again on the paged cache (prefix
 sharing, retention, host swap, a pool too small for every stream) and
-checks that the paged kernels ran and the pool drained.
+checks that the paged kernels ran and the pool drained.  Phase 6 frees
+that pair and serves ``mamba2-2.7b`` at full width (64 layers, d_model
+2560, bf16, random weights from a seed) through the model-level steps:
+a batched prefill of 4 x 512 tokens, 32 greedy decode steps, a chunked
+feed (256 + 256 through the verify step, the h0 path) that must agree
+with the one-shot prefill, and the same prefill on the plain SSD path
+(cosine >= 0.999); it checks that ``ssd_scan`` ran 64 times per
+multi-token forward and that the reduced mamba2 in float32 gives
+identical greedy streams through the kernel and the plain path.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -26,6 +34,7 @@ this script.
 """
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import signal
@@ -59,7 +68,15 @@ KERNEL_INFO = {
     "partial_prefill_attention_paged": dict(
         source="src/repro_torch/kernels/csrc/partial_prefill.cu",
         replaces="src/repro/kernels/partial_prefill/partial_prefill.py:204"),
+    "ssd_scan": dict(
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:75"),
 }
+# the kernels each serving path launches (phases 3, 5 and 6)
+DENSE_PATH = ("decode_attention", "partial_prefill_attention",
+              "attn_with_importance")
+PAGED_PATH = ("decode_attention_paged", "partial_prefill_attention_paged")
+SSM_PATH = ("ssd_scan",)
 
 
 def log(*a):
@@ -67,12 +84,14 @@ def log(*a):
 
 
 def kernel_modules():
-    from repro_torch.kernels import attn_importance, decode_gqa, partial_prefill
+    from repro_torch.kernels import (attn_importance, decode_gqa,
+                                     partial_prefill, ssd_scan)
     return {"decode_attention": decode_gqa,
             "partial_prefill_attention": partial_prefill,
             "attn_with_importance": attn_importance,
             "decode_attention_paged": decode_gqa,
-            "partial_prefill_attention_paged": partial_prefill}
+            "partial_prefill_attention_paged": partial_prefill,
+            "ssd_scan": ssd_scan}
 
 
 def _counter(name: str) -> str:
@@ -302,6 +321,7 @@ def phase_kernels():
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version")
     main.update(phase_paged_kernels())
+    main.update(phase_ssd_kernel())
     return main
 
 
@@ -446,6 +466,102 @@ def phase_paged_kernels():
     return main
 
 
+# SSD scan.  Shapes: (B, L, H, P, N, chunk, h0?).  mamba2-2.7b's widths;
+# B 4 and L 512 as phase 6's prefill, which passes the (zero) cache state
+# as h0; L 300 is not a multiple of the chunk.
+SSD_CASES = [
+    ("prefill, h0", (4, 512, 80, 64, 128, 256, True), True),
+    ("no h0", (4, 512, 80, 64, 128, 256, False), False),
+    ("L=300, h0", (4, 300, 80, 64, 128, 256, True), False),
+]
+
+
+def _ssd_case(shape, dtype, seed):
+    """Inputs for one ssd_scan check, on the card: the reference kernel
+    test's distribution (tests/test_kernels.py)."""
+    import torch
+    from repro_torch.models.layers import softplus
+    B, L, H, P, N, chunk, use_h0 = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(*s, generator=g, device="cuda")
+
+    return dict(x=(randn(B, L, H, P) * 0.5).to(dtype),
+                dt=softplus(randn(B, L, H)),
+                A=-torch.exp(randn(H) * 0.3),
+                Bm=(randn(B, L, N) * 0.5).to(dtype),
+                Cm=(randn(B, L, N) * 0.5).to(dtype),
+                h0=randn(B, H, P, N) * 0.2 if use_h0 else None,
+                chunk=chunk)
+
+
+def _ssd_bytes_flops(a):
+    """Least bytes (inputs read once, outputs written once) and flops of
+    one ssd_scan call: per chunk of r rows, C B^T over the r(r+1)/2
+    causal pairs once per batch row (it is shared by all heads), and per
+    head M x over those pairs, C h^T (where h is not zero) and the state
+    update x^T (B o w)."""
+    x, Bm = a["x"], a["Bm"]
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(a["chunk"], L)
+    esz = x.element_size()
+    nbytes = (2 * x.numel() * esz + 2 * Bm.numel() * esz
+              + (a["dt"].numel() + H + B * H * P * N) * 4
+              + (a["h0"].numel() * 4 if a["h0"] is not None else 0))
+    flops = 0
+    for c0 in range(0, L, Q):
+        r = min(Q, L - c0)
+        pairs = r * (r + 1) // 2
+        inter = 2 * r * N * P if (c0 or a["h0"] is not None) else 0
+        flops += B * (2 * pairs * N
+                      + H * (2 * pairs * P + inter + 2 * r * N * P))
+    return nbytes, flops
+
+
+def phase_ssd_kernel():
+    """ssd_scan against its plain version on the card (y at TOL, h_final
+    at 10 x TOL, as tests/test_kernels.py holds the Pallas kernel); times
+    kernel (L2 cold and warm) and plain version.  No PyTorch call
+    computes an SSD scan, so the library time is none.  Returns the bf16
+    main-path record."""
+    import torch
+    from repro_torch.kernels import ssd_scan as SS
+    main, ok = {}, True
+    for i, (label, shape, is_main) in enumerate(SSD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            a = _ssd_case(shape, dtype, seed=300 + i)
+            yk, hk = SS.ssd_scan(**a)
+            yp, hp = SS.ssd_scan_ref(**a)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[str(dtype)]
+            good = (_close(yk, yp, atol, rtol)
+                    and _close(hk, hp, 10 * atol, 10 * rtol)
+                    and bool(torch.isfinite(yk.float()).all()))
+            nbytes, flops = _ssd_bytes_flops(a)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_flops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+            rec = dict(
+                name="ssd_scan", case=label, dtype=str(dtype),
+                shape=list(shape), ok=good,
+                max_abs_err=float((yk.float() - yp.float()).abs().max()),
+                h_max_abs_err=float((hk - hp).abs().max()),
+                ms=_time_ms(lambda: SS.ssd_scan(**a)),
+                ms_l2_warm=_time_ms(lambda: SS.ssd_scan(**a), cold=False),
+                plain_ms=_time_ms(lambda: SS.ssd_scan_ref(**a), iters=5),
+                library_ms=None, bytes=nbytes, flops=flops,
+                bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations")
+            log("[kernels] " + json.dumps(rec))
+            ok = ok and good
+            if is_main and dtype == torch.bfloat16:
+                main["ssd_scan"] = rec
+    if not ok:
+        raise RuntimeError("ssd_scan disagrees with its plain version")
+    return main
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path at full width
 # ---------------------------------------------------------------------------
@@ -501,6 +617,23 @@ def profile_device_share(fn):
         return None
     rows.sort(key=lambda r: -r[1])
     return wall, sum(r[1] for r in rows), rows[:8]
+
+
+def profile_host_ops(fn):
+    """Run ``fn`` under torch.profiler (host activity only); returns (the
+    number of operator calls, nested calls included; the number of
+    kernel launches; the top six events [(name, self CPU s, calls)]).
+    The profiler slows each call, so the times are an upper bound; the
+    counts are exact."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    rows = [(ev.key, ev.self_cpu_time_total / 1e6, ev.count)
+            for ev in prof.key_averages()]
+    rows.sort(key=lambda r: -r[1])
+    n_ops = sum(c for k, _, c in rows if k.startswith("aten::"))
+    n_launches = sum(c for k, _, c in rows if k == "cudaLaunchKernel")
+    return n_ops, n_launches, rows[:6]
 
 
 def outputs_sha(outputs) -> str:
@@ -566,8 +699,7 @@ def phase_full_width(state):
     for o in res.outputs:
         if len(o) != max_new or not all(0 <= t < llm_cfg.vocab for t in o):
             raise RuntimeError(f"bad run_synera output {o}")
-    missing = [k for k, n in synera_launches.items()
-               if n == 0 and not k.endswith("_paged")]
+    missing = [k for k in DENSE_PATH if synera_launches[k] == 0]
     if missing:
         raise RuntimeError(f"main path never launched {missing}")
 
@@ -860,6 +992,201 @@ def phase_paged_full_width(state):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the Mamba2 (SSM) family at full width
+# ---------------------------------------------------------------------------
+
+def _cosine(a, b) -> float:
+    import torch
+    return float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0))
+
+
+def _greedy(cfg, params, prompts, n_new, device):
+    """Batched prefill of equal-length prompts, then ``n_new`` greedy
+    decode steps.  Returns (prefill last logits, tokens (B, n_new + 1),
+    prefill s, decode s)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+    B, T = prompts.shape
+    prefill, decode = S.make_prefill_step(cfg), S.make_decode_step(cfg)
+    cache = M.init_cache(cfg, B, T + n_new, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    last, cache = prefill(params, cache, prompts)
+    _sync(device)
+    t1 = time.perf_counter()
+    toks = [last.argmax(-1)]
+    for i in range(n_new):
+        pos = torch.full((B, 1), T + i, dtype=torch.int32, device=device)
+        logits, cache = decode(params, cache, toks[-1][:, None], pos)
+        toks.append(logits.argmax(-1))
+    _sync(device)
+    t2 = time.perf_counter()
+    return last, torch.stack(toks, 1), t1 - t0, t2 - t1
+
+
+def phase_ssm(cfg=None, *, batch=4, prompt_len=512, n_new=32,
+              device="cuda"):
+    """``mamba2-2.7b`` at full width through the model-level serving steps
+    (the SSM family cannot go through CloudEngine: bucket padding would
+    enter its state).  Main path, counted: a batched prefill, ``n_new``
+    greedy decode steps, and a chunked feed on a fresh cache (prefill the
+    first half, then the second half through the verify step: the h0 and
+    T > 1 conv_step path).  Then, uncounted: the same prefill on the
+    plain SSD path, a profiled window, and the reduced config in float32
+    through both paths.  Returns the launches of the main path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+
+    cfg = cfg or get_config("mamba2-2.7b").replace(attn_impl="pallas")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=device)
+    _sync(device)
+    def numel(tree):
+        return sum(numel(v) if isinstance(v, dict) else v.numel()
+                   for v in tree.values())
+
+    n_params = numel(params)
+    log(f"[ssm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state {cfg.ssm_state}, "
+        f"chunk {cfg.ssm_chunk}, {cfg.dtype}; {n_params / 1e9:.3f} B params, "
+        f"init {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(6)
+    prompts = torch.from_numpy(
+        rng.integers(1, cfg.vocab, (batch, prompt_len))).to(device)
+    half = prompt_len // 2
+    prefill, decode = S.make_prefill_step(cfg), S.make_decode_step(cfg)
+    with torch.no_grad():       # warm-up: library handles, kernel loading
+        prefill(params, M.init_cache(cfg, batch, prompt_len, device=device),
+                prompts)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    with torch.no_grad():
+        last, toks, t_pre, t_dec = _greedy(cfg, params, prompts, n_new,
+                                           device)
+        cache = M.init_cache(cfg, batch, prompt_len, device=device)
+        _sync(device)
+        t1 = time.perf_counter()
+        _, cache = prefill(params, cache, prompts[:, :half])
+        pos = M.default_positions(batch, prompt_len, device=device)[:, half:]
+        feed, cache = S.make_verify_step(cfg)(params, cache,
+                                              prompts[:, half:], pos)
+        _sync(device)
+        t_feed = time.perf_counter() - t1
+    launches = read_launches()
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if device == "cuda" else float("nan"))
+    log(f"[ssm] prefill {batch} x {prompt_len} tokens: {t_pre * 1e3:.3f} ms "
+        f"({batch * prompt_len / t_pre:.1f} tokens/s); {n_new} decode steps "
+        f"in {t_dec:.3f} s ({t_dec / n_new * 1e3:.3f} ms per step, "
+        f"{batch * n_new / t_dec:.1f} tokens/s); chunked feed "
+        f"{half} + {prompt_len - half}: {t_feed * 1e3:.3f} ms; peak "
+        f"{peak:.2f} GiB allocated")
+    log(f"[ssm] launches {json.dumps(launches)}")
+    toks_ok = bool(((toks >= 0) & (toks < cfg.vocab)).all())
+    finite = bool(torch.isfinite(last.float()).all()
+                  and torch.isfinite(feed.float()).all())
+    fl = feed[:, -1].float()
+    atol, rtol = TOL[str(last.dtype)]
+    feed_close = _close(fl, last, atol, rtol)
+    feed_cos = _cosine(fl, last)
+    log(f"[ssm] chunked feed vs one-shot prefill, last-position logits: "
+        f"cosine {feed_cos:.6f}, max|diff| "
+        f"{float((fl - last.float()).abs().max()):.5f} (|logit| <= "
+        f"{float(last.float().abs().max()):.3f}); within atol=rtol="
+        f"{atol}: {feed_close}; argmax equal "
+        f"{bool((fl.argmax(-1) == last.argmax(-1)).all())}")
+
+    # the plain SSD path (ssd_chunked), not counted
+    plain_cfg = cfg.replace(attn_impl="blocked")
+    with torch.no_grad():
+        cache = M.init_cache(plain_cfg, batch, prompt_len, device=device)
+        plain_last, _ = S.make_prefill_step(plain_cfg)(params, cache, prompts)
+    plain_cos = _cosine(last, plain_last)
+    log(f"[ssm] prefill, kernel vs plain SSD path: cosine {plain_cos:.6f}, "
+        f"max|diff| {float((last.float() - plain_last.float()).abs().max()):.5f}")
+
+    # profiled windows: the prefill, then 4 decode steps on its cache
+    cache = M.init_cache(cfg, batch, prompt_len + 4, device=device)
+    tok = toks[:, :1]
+
+    def prefill_window():
+        with torch.no_grad():
+            prefill(params, cache, prompts)
+
+    def decode_window():
+        with torch.no_grad():
+            for i in range(4):
+                pos = torch.full((batch, 1), prompt_len + i,
+                                 dtype=torch.int32, device=device)
+                decode(params, cache, tok, pos)
+
+    if device == "cuda":
+        for label, fn in (("prefill", prefill_window),
+                          ("4 decode steps", decode_window)):
+            prof = profile_device_share(fn)
+            if prof is None:
+                log(f"[ssm] profiler ({label}): no device time reported "
+                    f"(device share not measured)")
+                continue
+            pw, busy, top = prof
+            log(f"[ssm] profiled {label}: wall {pw:.3f} s, kernel time "
+                f"{busy:.3f} s, device busy share {busy / pw:.3f}")
+            for name, sec, calls in top[:5]:
+                log(f"[ssm]   {sec:8.4f} s {calls:7d} calls  {name[:90]}")
+    n_ops, n_launches, top_ops = profile_host_ops(decode_window)
+    log(f"[ssm] host, per decode step: {n_ops / 4:.0f} operator calls "
+        f"({n_ops / 4 / cfg.n_layers:.0f} per layer), {n_launches / 4:.0f} "
+        f"kernel launches ({n_launches / 4 / cfg.n_layers:.0f} per layer); "
+        f"by self CPU time over 4 steps: "
+        + json.dumps([(k, round(t, 4), c) for k, t, c in top_ops]))
+    del params, cache
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the reduced config in float32: kernel and plain greedy streams
+    tiny = get_config("mamba2-2.7b").reduced()
+    tiny_p = M.init_params(tiny, seed=1, device=device)
+    tiny_prompts = torch.from_numpy(
+        np.random.default_rng(7).integers(1, tiny.vocab, (2, 40))).to(device)
+    streams = {}
+    for impl in ("pallas", "blocked"):
+        reset_launches()
+        with torch.no_grad():
+            _, t, _, _ = _greedy(tiny.replace(attn_impl=impl), tiny_p,
+                                 tiny_prompts, 16, device)
+        streams[impl] = (t.tolist(), SS.launches)
+    log(f"[ssm] tiny {tiny.name} f32: kernel stream == plain stream: "
+        f"{streams['pallas'][0] == streams['blocked'][0]}; ssd_scan "
+        f"launches {streams['pallas'][1]} / {streams['blocked'][1]}")
+
+    checks = {
+        "tokens in the vocab": toks_ok,
+        "finite logits": finite,
+        f"ssd_scan launched {cfg.n_layers} x 3 times":
+            launches["ssd_scan"] == 3 * cfg.n_layers,
+        "no attention kernel launched": all(
+            launches[k] == 0 for k in DENSE_PATH + PAGED_PATH),
+        "chunked feed agrees with the one-shot prefill": feed_close,
+        "kernel vs plain cosine >= 0.999": plain_cos >= 0.999,
+        "tiny f32 streams identical":
+            streams["pallas"][0] == streams["blocked"][0],
+        "tiny kernel path launched ssd_scan once per layer":
+            streams["pallas"][1] == tiny.n_layers,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"ssm full-width run failed: {failed}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 PHASE_LIMIT_S = 450              # a phase that runs longer is hung
 
@@ -889,25 +1216,32 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     main_recs, launches, state = {}, {}, {}
-    paged = ("decode_attention_paged", "partial_prefill_attention_paged")
     t_start = time.perf_counter()
     signal.signal(signal.SIGALRM, _phase_timeout)
+
+    def ssm():
+        state.clear()           # frees the 160M/7B pair's weights
+        gc.collect()            # and the engines' reference cycles
+        torch.cuda.empty_cache()
+        log(f"[ssm] {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+            f"allocated before phase 6")
+        return phase_ssm()
+
     try:
         for p, fn in ((1, phase_build), (2, phase_kernels),
                       (3, lambda: phase_full_width(state)),
                       (4, phase_tiny_identity),
-                      (5, lambda: phase_paged_full_width(state))):
+                      (5, lambda: phase_paged_full_width(state)),
+                      (6, ssm)):
             t0 = time.perf_counter()
             signal.alarm(PHASE_LIMIT_S)
             out = fn()
             signal.alarm(0)
             if p == 2:
                 main_recs = out
-            if p == 3:          # the dense main path's launches
-                launches.update({k: v for k, v in out.items()
-                                 if k not in paged})
-            if p == 5:          # the paged cloud path's launches
-                launches.update({k: out[k] for k in paged})
+            # each kernel's launches come from the path that runs it
+            path = {3: DENSE_PATH, 5: PAGED_PATH, 6: SSM_PATH}.get(p, ())
+            launches.update({k: out[k] for k in path})
             log(f"[phase {p}] ok in {time.perf_counter() - t0:.1f} s")
     except Exception as e:  # report which phase failed, then exit non-zero
         signal.alarm(0)

@@ -5,7 +5,9 @@ The input is the reference parameter tree as numpy arrays, either nested
 flat with ``||``-joined keys (a ``repro/checkpoint/io.py`` ``.npz``
 loaded with ``numpy.load``).  The output is the nested dict the port's
 ``models/model.py`` consumes: same keys, the stacked leading layer axis
-kept.
+kept.  Leaves the reference keeps in float32 whatever the model dtype
+(the Mamba2 ``A_log``, ``D`` and ``dt_bias``) stay float32 when
+``dtype=`` is given.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from repro_torch.runtime import resolve_device
 
 SEP = "||"   # key separator of repro/checkpoint/io.py
+F32_LEAVES = ("A_log", "D", "dt_bias")   # layers.init_mamba's f32 leaves
 
 
 def _unflatten(flat) -> dict:
@@ -40,16 +43,17 @@ def _to_tensor(a, device, dtype):
 def params_from_reference(tree, *, device=None, dtype=None) -> dict:
     """Convert a reference parameter tree (nested dict, or flat mapping
     with ``||`` keys) of numpy arrays into torch tensors on ``device``
-    (default CUDA), cast to ``dtype`` when given."""
+    (default CUDA), cast to ``dtype`` when given (except the
+    ``F32_LEAVES``)."""
     dev = resolve_device(device)
     if not any(isinstance(v, dict) for v in tree.values()) and any(
             SEP in k for k in tree):
         tree = _unflatten(tree)
 
-    def conv(node):
+    def conv(node, name=None):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _to_tensor(node, dev, dtype)
+            return {k: conv(v, k) for k, v in node.items()}
+        return _to_tensor(node, dev, None if name in F32_LEAVES else dtype)
 
     return conv(dict(tree))
 

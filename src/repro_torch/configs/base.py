@@ -2,8 +2,9 @@
 
 One ``ModelConfig`` dataclass covers every architecture family of the
 reference (dense, moe, vlm, audio, ssm, hybrid), so one config drives
-both packages; the port so far runs ``family="dense"``.  ``reduced()``
-gives the small variant tests instantiate.
+both packages; the port so far runs ``family="dense"`` and
+``family="ssm"``.  ``reduced()`` gives the small variant tests
+instantiate.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-One module per kernel of the reference's ``repro/kernels`` that this port
-carries (``decode_gqa``, ``partial_prefill``, ``attn_importance``; the
-first two hold a dense and a paged entry point, and ``paged`` the
-block-table layout arithmetic and split merge both share).  Each entry
+One module per kernel of the reference's ``repro/kernels``; all six of
+its Pallas entry points are carried: ``decode_gqa`` and
+``partial_prefill`` (each a dense and a paged entry point; ``paged``
+holds the block-table layout arithmetic and split merge both share),
+``attn_importance``, and ``ssd_scan`` (the Mamba2 SSD scan).  Each entry
 point has its wrapper, its plain PyTorch version and a launch counter.
 The wrapper takes the plain version only for tensors on the
 CPU; for a CUDA tensor it launches the CUDA kernel (``csrc/``, built by

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("decode_gqa", "partial_prefill", "attn_importance")
+KERNELS = ("decode_gqa", "partial_prefill", "attn_importance", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,9 @@ SIGNATURES = {
     },
     "attn_importance": {
         "attn_importance_launch": [_P] * 7 + [_I] * 8 + [_P],
+    },
+    "ssd_scan": {
+        "ssd_scan_launch": [_P] * 8 + [_I] * 7 + [_P],
     },
 }
 

@@ -1,6 +1,6 @@
-"""Neural building blocks of the dense decoder (port of
-``repro/models/layers.py``, dense-family subset, dense and paged KV
-caches).
+"""Neural building blocks of the dense decoder and of the Mamba2 (SSD)
+block (port of ``repro/models/layers.py``: the dense family with dense
+and paged KV caches, and the ssm family).
 
 Plain functions over explicit parameter dicts of tensors, as in the
 reference.  Attention exists in three implementations, selected by
@@ -17,7 +17,11 @@ reference.  Attention exists in three implementations, selected by
                    ``attn_importance`` for the device draft path; over a
                    paged cache their block-table variants read the pool
                    in place.  The name is kept from the reference so one
-                   ``ModelConfig`` drives both packages.
+                   ``ModelConfig`` drives both packages.  It also selects
+                   the ``ssd_scan`` kernel for a multi-token Mamba2
+                   forward (the reference's model path always takes the
+                   XLA ``ssd_chunked`` there; its Pallas ``ssd_scan`` is
+                   the same function, so the port puts its kernel there).
 
 KV caches are updated in place (the reference donates them to jit).  A
 paged per-layer cache is ``{"k"/"v": (nb, bs, nkv, hd), "pos": (nb, bs),
@@ -41,6 +45,7 @@ from repro_torch.kernels.decode_gqa import (decode_attention,
                                             decode_attention_paged)
 from repro_torch.kernels.partial_prefill import (
     partial_prefill_attention, partial_prefill_attention_paged)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
 NEG_INF = -1e30
 
@@ -57,6 +62,11 @@ def rms_norm(x, w, eps: float = 1e-5):
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
     return (y * w.float()).to(x.dtype)
+
+
+def gated_rms_norm(y, z, w, eps: float = 1e-5):
+    """Mamba2 gated RMSNorm: norm(y * silu(z)) * w."""
+    return rms_norm(y * silu(z), w, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -446,3 +456,187 @@ def attn_block(p, x, positions, cfg, cache=None, *, kv_pos=None, causal=True,
 
 def mlp(p, x):
     return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) block
+# ---------------------------------------------------------------------------
+
+def softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) = logaddexp(x, 0), with no
+    linear cut-off (torch's ``F.softplus`` returns x above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def causal_conv1d(x, w, b):
+    """Depthwise causal conv. x: (B, L, C), w: (W, C).  The W products
+    are summed in x's dtype in the order i = 0..W-1, as the reference."""
+    W, L = w.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, W - 1, 0))
+    y = xp[:, 0:L] * w[0]
+    for i in range(1, W):
+        y = y + xp[:, i:i + L] * w[i]
+    return y + b
+
+
+def conv_step(conv_state, x_t, w, b):
+    """conv_state: (B, W-1, C), x_t: (B, T, C) with T small (decode chunk).
+    Returns (y (B, T, C), new_state (B, W-1, C))."""
+    full = torch.cat([conv_state, x_t], dim=1)
+    W1 = conv_state.shape[1]
+    y = causal_conv1d(full, w, b)[:, W1:]
+    new_state = full[:, full.shape[1] - W1:] if W1 else conv_state
+    return y, new_state
+
+
+def _segsum(dA):
+    """dA: (..., q, h) -> L (..., h, q, q) with L[i,j]=exp(sum_{j<k<=i} dA).
+
+    The masked (j > i) entries have POSITIVE diff (dA is negative), so
+    exp overflows there; the mask is applied BEFORE the exp."""
+    q = dA.shape[-2]
+    dAc = torch.cumsum(dA, dim=-2).transpose(-1, -2)      # (..., h, q)
+    diff = dAc[..., :, None] - dAc[..., None, :]           # (..., h, q, q)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                 device=dA.device))
+    return torch.exp(torch.where(mask, diff, NEG_INF))
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
+    """Chunked SSD scan ("Transformers are SSMs", Alg. 1 / minimal impl).
+
+    x: (B, L, H, P); dt: (B, L, H) (already softplus'd);
+    A: (H,) negative; Bm, Cm: (B, L, N) (single group).
+    Returns (y (B, L, H, P), h_final (B, H, P, N)).
+
+    The reference's four-operand einsums are written as pairwise
+    products: M = scores o Lmat o dt is formed as (B, C, H, Q, Q) and
+    applied to x with one batched matmul, never a (.., Q, Q, P) tensor.
+    """
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    assert L % Q == 0, f"seq {L} not divisible by chunk {Q}"
+    C_ = L // Q
+
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    dA = dtf * A                                           # (B, L, H)
+
+    xc = xf.reshape(Bsz, C_, Q, H, P)
+    dtc = dtf.reshape(Bsz, C_, Q, H)
+    dAc = dA.reshape(Bsz, C_, Q, H)
+    Bc = Bf.reshape(Bsz, C_, Q, N)
+    Cc = Cf.reshape(Bsz, C_, Q, N)
+    xh = xc.permute(0, 1, 3, 2, 4)                         # (B, C, H, Q, P)
+
+    # Intra-chunk (dual quadratic form)
+    Lmat = _segsum(dAc)                                    # (B, C, H, Q, Q)
+    scores = Cc @ Bc.transpose(-1, -2)                     # (B, C, Q, Q)
+    M = scores[:, :, None] * Lmat * dtc.transpose(-1, -2)[:, :, :, None, :]
+    Yd = M @ xh                                            # (B, C, H, Q, P)
+
+    # Chunk states
+    dA_cum = torch.cumsum(dAc, dim=2)                      # (B, C, Q, H)
+    decay_states = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)
+    w = (decay_states * dtc).transpose(-1, -2)             # (B, C, H, Q)
+    states = (xh * w[..., None]).transpose(-1, -2) @ Bc[:, :, None]
+    # states: (B, C, H, P, N)
+
+    # Inter-chunk recurrence
+    chunk_decay = torch.exp(dA_cum[:, :, -1, :])           # (B, C, H)
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_prev = []
+    for c in range(C_):
+        h_prev.append(h)                  # the state *entering* chunk c
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                    # (B, C, H, P, N)
+
+    # Off-diagonal (inter-chunk) contribution
+    Yo = (Cc[:, :, None] @ h_prev.transpose(-1, -2)) \
+        * dA_cum.exp().transpose(-1, -2)[..., None]        # (B, C, H, Q, P)
+    y = (Yd + Yo).permute(0, 1, 3, 2, 4).reshape(Bsz, L, H, P)
+    return y.to(x.dtype), h
+
+
+def ssd_decode(x, dt, A, Bm, Cm, h):
+    """Single-token recurrent update.
+
+    x: (B, 1, H, P), dt: (B, 1, H), Bm/Cm: (B, 1, N), h: (B, H, P, N).
+    """
+    xf, dtf = x[:, 0].float(), dt[:, 0].float()            # (B,H,P), (B,H)
+    Bf, Cf = Bm[:, 0].float(), Cm[:, 0].float()            # (B,N)
+    dA = torch.exp(dtf * A)                                # (B, H)
+    upd = (dtf[..., None] * xf)[..., None] * Bf[:, None, None, :]
+    h_new = h * dA[:, :, None, None] + upd
+    y = (h_new @ Cf[:, None, :, None])[..., 0]             # (B, H, P)
+    return y[:, None].to(x.dtype), h_new
+
+
+def mamba_block(p, cfg, x, cache=None, *, return_importance=False):
+    """Full Mamba2 block. x: (B, T, d).
+
+    cache: {"conv": (B, W-1, C), "state": (B, H, P, N) f32} or None; the
+    new conv window and state are written into those tensors in place.
+    A multi-token forward runs the SSD scan through the ``ssd_scan``
+    kernel when ``cfg.attn_impl == "pallas"``, else through its plain
+    version (pad to a multiple of ``Q = min(chunk, T)``, then
+    :func:`ssd_chunked`, the reference's path); one token over a cache is
+    :func:`ssd_decode`.  Importance analogue for SSMs: per-token mean
+    |dt * x|.  Returns (out, cache, importance (B, T) or None).
+    """
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    P = cfg.ssm_head_dim
+    B, T, _ = x.shape
+
+    proj = x @ p["in_proj"]
+    z, xbc, dt_raw = proj.split([di, di + 2 * N, H], dim=-1)
+
+    if cache is not None:
+        xbc, new_conv = conv_step(cache["conv"], xbc, p["conv_w"],
+                                  p["conv_b"])
+    else:
+        xbc = causal_conv1d(xbc, p["conv_w"], p["conv_b"])
+    xbc = silu(xbc)
+    xs, Bm, Cm = xbc.split([di, N, N], dim=-1)
+
+    dt = softplus(dt_raw.float() + p["dt_bias"])           # (B, T, H)
+    A = -torch.exp(p["A_log"])                             # (H,)
+    xh = xs.reshape(B, T, H, P)
+
+    if cache is not None and T == 1:
+        y, new_state = ssd_decode(xh, dt, A, Bm, Cm, cache["state"].float())
+    else:
+        h0 = cache["state"].float() if cache is not None else None
+        scan = ssd_scan if cfg.attn_impl == "pallas" else ssd_scan_ref
+        y, new_state = scan(xh.contiguous(), dt, A, Bm.contiguous(),
+                            Cm.contiguous(), chunk=cfg.ssm_chunk, h0=h0)
+    y = y + (p["D"][:, None] * xh.float()).to(y.dtype)
+    y = y.reshape(B, T, di)
+    y = gated_rms_norm(y, z, p["gate_norm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+
+    imp = None
+    if return_importance:
+        imp = (dt[..., None] * xh.float()).abs().mean(dim=(-1, -2))
+
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(new_state)
+    return out, cache, imp
+
+
+def init_mamba_cache(cfg, batch, dtype, *, layers: int, device):
+    """Per-layer conv windows and SSM states, stacked over ``layers``:
+    {"conv": (layers, batch, W-1, C) dtype, "state": (layers, batch, H,
+    P, N) f32}, zeros."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    convC = di + 2 * N
+    return {
+        "conv": torch.zeros((layers, batch, cfg.ssm_conv_width - 1, convC),
+                            dtype=dtype, device=device),
+        "state": torch.zeros((layers, batch, H, P, N), dtype=torch.float32,
+                             device=device),
+    }

@@ -1,4 +1,5 @@
-"""Model assembly for the dense family (port of ``repro/models/model.py``).
+"""Model assembly for the dense and ssm families (port of
+``repro/models/model.py``).
 
 Parameters are nested dicts of tensors with the reference's structure and
 names; every per-layer leaf keeps the stacked leading layer axis that the
@@ -10,8 +11,9 @@ Conventions (as in the reference):
 * ``forward(...)`` returns ``(logits, cache, importance, aux_loss)``;
 * ``window`` > 0 enables sliding-window attention over a circular cache.
 
-Only ``family="dense"`` is ported so far, with a dense or a paged cache;
-the other families raise ``NotImplementedError``.
+Ported so far: ``family="dense"`` with a dense or a paged cache, and
+``family="ssm"`` (Mamba2, per-layer conv windows and SSM states; nothing
+to page).  The other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.models import layers as L
 from repro_torch.runtime import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def torch_dtype(cfg) -> torch.dtype:
@@ -30,9 +33,10 @@ def torch_dtype(cfg) -> torch.dtype:
 
 
 def _check_ported(cfg):
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet "
+            f"(ported: {', '.join(PORTED_FAMILIES)})")
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +66,22 @@ def init_params(cfg, seed: int = 0, *, device=None):
     params = {"embed": normal(V, d, scale=0.02), "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         params["unembed"] = normal(d, V, scale=sd)
+    if cfg.family == "ssm":
+        # init_mamba: A_log, D and dt_bias are f32 whatever the model dtype
+        di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        convC = di + 2 * N
+        a_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
+        params["layers"] = {
+            "in_proj": normal(n, d, 2 * di + 2 * N + H, scale=sd),
+            "conv_w": normal(n, cfg.ssm_conv_width, convC, scale=0.1),
+            "conv_b": torch.zeros((n, convC), dtype=dt, device=dev),
+            "A_log": a_log.expand(n, H).clone(),
+            "D": torch.ones((n, H), device=dev),
+            "dt_bias": torch.zeros((n, H), device=dev),
+            "gate_norm": ones(n, di),
+            "out_proj": normal(n, di, d, scale=1.0 / math.sqrt(di)),
+        }
+        return params
     attn = {
         "wq": normal(n, d, nh * hd, scale=sd),
         "wk": normal(n, d, nkv * hd, scale=sd),
@@ -97,7 +117,9 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
 
     ``cache_impl`` (default ``cfg.cache_impl``) selects the layout:
 
-    * ``"dense"`` -- one contiguous (batch, s_max) buffer per layer.
+    * ``"dense"`` -- one contiguous (batch, s_max) buffer per layer; for
+      ``family="ssm"`` each layer's conv window and f32 SSM state instead
+      (fixed size: ``s_max`` is not used).
     * ``"paged"`` -- a shared pool of ``pool_blocks`` blocks of
       ``block_size`` tokens (default ``cfg.kv_block_size``) per layer,
       plus one (batch, s_max / block_size) int32 ``block_tables`` map
@@ -131,6 +153,10 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
                                        dtype=torch.int32, device=dev),
         }}
     _check_ported(cfg)
+    if cfg.family == "ssm":
+        # fixed-size conv windows and SSM states: s_max is not used
+        return {"layers": L.init_mamba_cache(cfg, batch, dt, layers=n,
+                                             device=dev)}
     shape = (n, batch, s_max, nkv, hd)
     return {"layers": {
         "k": torch.zeros(shape, dtype=dt, device=dev),
@@ -234,15 +260,9 @@ def _layer(cfg, p, h, pos, cache, *, window=0, ret_imp=False,
     return h + L.mlp(p["mlp"], f_in), nc, imp
 
 
-def forward(cfg, params, tokens, positions, cache=None, *, window: int = 0,
-            return_importance: bool = False):
-    """tokens: (B, T) int; positions: (B, T) int.
-
-    Returns (logits (B, T, V), cache, importance (B, S) or None, aux_loss).
-    ``cache`` is updated in place and returned (None without a cache).
-    """
-    _check_ported(cfg)
-    h = params["embed"][tokens]
+def _dense_stack(cfg, params, h, positions, cache, *, window, ret_imp):
+    """The dense decoder stack over a dense or paged KV cache; the cache's
+    write index is computed once and shared by every layer."""
     windex = None
     if cache is not None:
         lc = cache["layers"]
@@ -255,11 +275,44 @@ def forward(cfg, params, tokens, positions, cache=None, *, window: int = 0,
     for i in range(cfg.n_layers):
         lc = layer_slice(cache["layers"], i) if cache is not None else None
         h, _, imp = _layer(cfg, layer_slice(params["layers"], i), h,
-                           positions, lc, window=window,
-                           ret_imp=return_importance, write_index=windex)
-        if return_importance:
+                           positions, lc, window=window, ret_imp=ret_imp,
+                           write_index=windex)
+        if ret_imp:
             imps.append(imp)
-    imp = torch.stack(imps).mean(0) if return_importance else None
+    return h, torch.stack(imps).mean(0) if ret_imp else None
+
+
+def _ssm_backbone(cfg, params, h, cache, *, ret_imp):
+    """The Mamba2 stack: residual blocks with no pre-norm, as the
+    reference.  Positions play no part (the reference drops them)."""
+    imps = []
+    for i in range(cfg.n_layers):
+        lc = layer_slice(cache["layers"], i) if cache is not None else None
+        out, _, imp = L.mamba_block(layer_slice(params["layers"], i), cfg, h,
+                                    lc, return_importance=ret_imp)
+        h = h + out
+        if ret_imp:
+            imps.append(imp)
+    return h, torch.stack(imps).mean(0) if ret_imp else None
+
+
+def forward(cfg, params, tokens, positions, cache=None, *, window: int = 0,
+            return_importance: bool = False):
+    """tokens: (B, T) int; positions: (B, T) int.
+
+    Returns (logits (B, T, V), cache, importance or None, aux_loss):
+    importance is (B, S) over the attention keys for the dense family,
+    (B, T) per token for ssm.  ``cache`` is updated in place and returned
+    (None without a cache).
+    """
+    _check_ported(cfg)
+    h = params["embed"][tokens]
+    if cfg.family == "ssm":
+        h, imp = _ssm_backbone(cfg, params, h, cache,
+                               ret_imp=return_importance)
+    else:
+        h, imp = _dense_stack(cfg, params, h, positions, cache,
+                              window=window, ret_imp=return_importance)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     unemb = (params["embed"].T if cfg.tie_embeddings else params["unembed"])
     logits = h @ unemb

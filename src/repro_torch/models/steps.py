@@ -16,7 +16,8 @@ from repro_torch.models import model as M
 def make_prefill_step(cfg):
     """(params, cache, tokens) -> (logits_last, cache).
 
-    tokens: (B, T).  Fills the KV cache and returns last-position logits.
+    tokens: (B, T).  Fills the KV or SSM cache and returns last-position
+    logits.  An SSM has no mask: the batch's prompts share one length.
     """
 
     def prefill(params, cache, tokens):
