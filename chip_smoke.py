@@ -6,9 +6,11 @@
 Phase 1 builds the hand-written kernels from ``src/repro_torch/kernels/
 csrc`` with nvcc for sm_90a.  Phase 2 holds each kernel against its plain
 PyTorch version on the card at the main path's shapes (plus GQA and
-window shapes; the paged kernels also at three split layouts), in
-float32 and bfloat16, and times kernel, plain version and one library
-call with L2 flushed before each timed call.  Phase 3 serves
+window shapes, and the dense kernels' edge shapes: S not a multiple of
+32, one needed tile, an idle slot, g up to 8, hd 16-128, each logged with
+its split count and grid; the paged kernels also at three split
+layouts), in float32 and bfloat16, and times kernel, plain version and
+one library call with L2 flushed before each timed call.  Phase 3 serves
 ``run_synera`` and ``run_cloud_centric`` end to end with the paper's
 SLM/LLM pair at full width on the dense cache (random weights from a
 seed) and checks that every kernel of the path was launched.  Phase 4
@@ -77,6 +79,9 @@ DENSE_PATH = ("decode_attention", "partial_prefill_attention",
               "attn_with_importance")
 PAGED_PATH = ("decode_attention_paged", "partial_prefill_attention_paged")
 SSM_PATH = ("ssd_scan",)
+# CUDA symbols of the port's attention kernels (profiler rows)
+PORT_KERNEL_SYMBOLS = ("decode_gqa_kernel", "partial_prefill_kernel",
+                       "attn_importance_kernel", "combine_splits_kernel")
 
 
 def log(*a):
@@ -164,6 +169,7 @@ def _bytes_flops(q, k, out_bytes, valid, nh, hd, extra_bytes=0):
 
 
 L2_FLUSH_BYTES = 256 << 20       # five times the H100's 50 MB L2
+HOLD_CYCLES = 1_000_000          # ~0.5 ms of device sleep before each call
 
 
 def _time_ms(fn, iters=20, warmup=3, cold=True):
@@ -171,7 +177,9 @@ def _time_ms(fn, iters=20, warmup=3, cold=True):
     ``cold`` a 256 MB buffer is written before every timed call, so the
     call finds none of its inputs in L2 -- as on the main path, where the
     other layers' K/V and the weights pass through L2 between two uses of
-    one layer's cache."""
+    one layer's cache.  The device sleeps before each call while the host
+    queues it, so the events time the device's work, not the host's
+    enqueue (which is longer than a kernel of a few tens of us)."""
     import torch
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold else None
     for _ in range(warmup):
@@ -179,6 +187,7 @@ def _time_ms(fn, iters=20, warmup=3, cold=True):
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for e0, e1 in ev:
+        torch.cuda._sleep(HOLD_CYCLES)
         if cold:
             flush.zero_()
         e0.record()
@@ -193,7 +202,24 @@ def _close(a, b, atol, rtol):
                  <= atol + rtol * b.float().abs()).all())
 
 
-def _case(name, shape, dtype, seed):
+def case_positions(name, shape, opts, rng):
+    """Positions of one dense kernel case, numpy int32: (q_pos, kv_pos).
+    ``opts``: ``idle`` makes slot 1 idle (q_pos -1: a decode slot with no
+    query, a chunk of padded rows); the window is the kernel's argument."""
+    if name == "decode_attention":
+        B, S, nh, nkv, hd, lo, hi = shape
+        qp, kp = _cache_positions(rng, B, S, 1, lo, hi, pad_rows=False)
+        qp = qp[:, 0].copy()
+    else:
+        B, C, S, nh, nkv, hd, lo, hi = shape
+        qp, kp = _cache_positions(rng, B, S, C, lo, hi,
+                                  pad_rows=name != "attn_with_importance")
+    if opts.get("idle"):
+        qp[1] = -1
+    return qp, kp
+
+
+def _case(name, shape, dtype, seed, opts=None):
     """Inputs for one kernel check, on the card."""
     import torch
     dev = "cuda"
@@ -203,30 +229,30 @@ def _case(name, shape, dtype, seed):
     def randn(*s):
         return torch.randn(*s, generator=g, device=dev).to(dtype)
 
+    qp, kp = case_positions(name, shape, opts or {}, rng)
     if name == "decode_attention":
         B, S, nh, nkv, hd, lo, hi = shape
-        qp, kp = _cache_positions(rng, B, S, 1, lo, hi, pad_rows=False)
-        return dict(q=randn(B, nh, hd), k=randn(B, S, nkv, hd),
-                    v=randn(B, S, nkv, hd),
-                    q_pos=torch.from_numpy(qp[:, 0].copy()).to(dev),
-                    kv_pos=torch.from_numpy(kp).to(dev))
-    B, C, S, nh, nkv, hd, lo, hi = shape
-    qp, kp = _cache_positions(rng, B, S, C, lo, hi,
-                              pad_rows=name != "attn_with_importance")
-    return dict(q=randn(B, C, nh, hd), k=randn(B, S, nkv, hd),
-                v=randn(B, S, nkv, hd), q_pos=torch.from_numpy(qp).to(dev),
+        q = randn(B, nh, hd)
+    else:
+        B, C, S, nh, nkv, hd, lo, hi = shape
+        q = randn(B, C, nh, hd)
+    return dict(q=q, k=randn(B, S, nkv, hd), v=randn(B, S, nkv, hd),
+                q_pos=torch.from_numpy(qp).to(dev),
                 kv_pos=torch.from_numpy(kp).to(dev))
 
 
-def _valid(name, a):
+def _valid(name, a, window=0):
     kp, qp = a["kv_pos"], a["q_pos"]
     if name == "decode_attention":
-        return ((kp >= 0) & (kp <= qp[:, None]))[:, None, :]
-    return (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0) \
+        qp = qp[:, None]
+    valid = (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0) \
         & (kp[:, None, :] <= qp[:, :, None])
+    if window:
+        valid &= (qp[:, :, None] - kp[:, None, :]) < window
+    return valid
 
 
-def _library_call(name, a):
+def _library_call(name, a, window=0):
     """One PyTorch call computing the same function (a yardstick only; the
     port never calls it), or None."""
     import torch
@@ -237,30 +263,70 @@ def _library_call(name, a):
     qt = q.transpose(1, 2).contiguous()
     kt = a["k"].transpose(1, 2).contiguous()
     vt = a["v"].transpose(1, 2).contiguous()
-    mask = _valid(name, a)[:, None]
+    mask = _valid(name, a, window)[:, None]
     gqa = qt.shape[1] != kt.shape[1]
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=gqa)
 
 
-# (kernel, label, shape, main-path?)  Shapes: decode (B, S, nh, nkv, hd,
-# fill lo, fill hi); others (B, C, S, nh, nkv, hd, fill lo, fill hi).  The
-# fills match phase 3: prompts of 64-256 tokens plus 32 generated.
+# (kernel, label, shape, main-path?, options)  Shapes: decode (B, S, nh,
+# nkv, hd, fill lo, fill hi); others (B, C, S, nh, nkv, hd, fill lo, fill
+# hi).  The fills match phase 3: prompts of 64-256 tokens plus 32
+# generated.  After the serving shapes come the edge shapes of the dense
+# kernels' needed-tile walk and split-KV layout: S not a multiple of 32,
+# one needed tile, an idle slot (q_pos -1), a window, g in {1, 2, 4, 8}
+# and hd in {16, 32, 64, 128}.  Options: ``window`` (the kernel's
+# argument), ``idle`` (slot 1 has no query).
 KERNEL_CASES = [
-    ("decode_attention", "cloud decode", (8, 2048, 32, 32, 128, 64, 320), True),
-    ("decode_attention", "gqa g=4", (4, 1024, 32, 8, 128, 64, 900), False),
+    ("decode_attention", "cloud decode", (8, 2048, 32, 32, 128, 64, 320), True,
+     {}),
+    ("decode_attention", "gqa g=4", (4, 1024, 32, 8, 128, 64, 900), False,
+     {}),
     ("partial_prefill_attention", "cloud verify C=32",
-     (8, 32, 2048, 32, 32, 128, 64, 288), True),
+     (8, 32, 2048, 32, 32, 128, 64, 288), True, {}),
     ("partial_prefill_attention", "cloud prefill C=256",
-     (8, 256, 2048, 32, 32, 128, 0, 1), False),
+     (8, 256, 2048, 32, 32, 128, 0, 1), False, {}),
     ("partial_prefill_attention", "device prompt feed",
-     (1, 127, 512, 12, 12, 64, 0, 1), False),
+     (1, 127, 512, 12, 12, 64, 0, 1), False, {}),
     ("partial_prefill_attention", "gqa g=4", (2, 16, 512, 16, 4, 64, 32, 400),
-     False),
+     False, {}),
     ("attn_with_importance", "device draft", (1, 1, 512, 12, 12, 64, 64, 288),
-     True),
-    ("attn_with_importance", "gqa g=4", (2, 8, 256, 8, 2, 64, 32, 200), False),
+     True, {}),
+    ("attn_with_importance", "gqa g=4", (2, 8, 256, 8, 2, 64, 32, 200), False,
+     {}),
+    ("decode_attention", "S=1000 g=2", (4, 1000, 16, 8, 64, 100, 990), False,
+     {}),
+    ("decode_attention", "one needed tile", (4, 512, 8, 8, 32, 0, 20), False,
+     {}),
+    ("decode_attention", "idle slot g=8", (4, 256, 8, 1, 16, 32, 200), False,
+     {"idle": True}),
+    ("decode_attention", "window 64 g=8", (4, 1024, 32, 4, 128, 200, 1000),
+     False, {"window": 64}),
+    ("partial_prefill_attention", "S=1000 g=2",
+     (2, 24, 1000, 16, 8, 64, 100, 950), False, {}),
+    ("partial_prefill_attention", "one needed tile",
+     (4, 8, 512, 8, 8, 32, 0, 16), False, {}),
+    ("partial_prefill_attention", "idle slot g=8",
+     (4, 16, 256, 8, 1, 16, 32, 200), False, {"idle": True}),
+    ("partial_prefill_attention", "window 64 g=8",
+     (2, 32, 1024, 32, 4, 128, 200, 900), False, {"window": 64}),
 ]
+
+
+def dense_launch(name, shape):
+    """Split count, grid and threads of a dense kernel's launch at
+    ``shape`` on this card (kernels/splits.py, as the wrapper computes
+    it)."""
+    import torch
+    from repro_torch.kernels import splits as SP
+    if name == "decode_attention":
+        B, S, nh, nkv = shape[:4]
+        rows, decode = nh // nkv, True
+    else:
+        B, C, S, nh, nkv = shape[:5]
+        rows, decode = nh // nkv * C, False
+    return SP.dense_grid(B, nkv, rows, S, decode=decode,
+                         sms=SP.sm_count(torch.device("cuda")))
 
 
 def phase_kernels():
@@ -273,12 +339,14 @@ def phase_kernels():
                  mods["attn_with_importance"].attn_with_importance_ref}
     main = {}
     ok = True
-    for i, (name, label, shape, is_main) in enumerate(KERNEL_CASES):
+    for i, (name, label, shape, is_main, opts) in enumerate(KERNEL_CASES):
+        window = opts.get("window", 0)
+        kw = dict(window=window) if window else {}
         for dtype in (torch.float32, torch.bfloat16):
-            a = _case(name, shape, dtype, seed=100 + i)
+            a = _case(name, shape, dtype, seed=100 + i, opts=opts)
             kern = getattr(mods[name], name)
-            out_k = kern(**a)
-            out_p = plain[name](**a)
+            out_k = kern(**a, **kw)
+            out_p = plain[name](**a, **kw)
             torch.cuda.synchronize()
             atol, rtol = TOL[str(dtype)]
             if name == "attn_with_importance":
@@ -292,23 +360,26 @@ def phase_kernels():
                 good = _close(out_k, out_p, atol, rtol)
                 err = float((out_k.float() - out_p.float()).abs().max())
                 out_bytes = out_k.numel() * out_k.element_size()
-                if name == "partial_prefill_attention":
-                    pad = a["q_pos"] < 0
-                    good = good and bool((out_k[pad] == 0).all())
-            valid = _valid(name, a)
+                # padded rows and idle slots come out exactly 0
+                pad = a["q_pos"] < 0
+                good = good and bool((out_k[pad] == 0).all())
+            valid = _valid(name, a, window)
             nh, hd = a["q"].shape[-2], a["q"].shape[-1]
             pos_bytes = (a["q_pos"].numel() + a["kv_pos"].numel()) * 4
             nbytes, flops = _bytes_flops(a["q"], a["k"], out_bytes, valid,
                                          nh, hd, extra_bytes=pos_bytes)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_flops = flops / PEAK_FLOPS[str(dtype)] * 1e3
-            ms = _time_ms(lambda: kern(**a))
-            warm_ms = _time_ms(lambda: kern(**a), cold=False)
-            plain_ms = _time_ms(lambda: plain[name](**a), iters=5)
-            lib = _library_call(name, a)
+            ms = _time_ms(lambda: kern(**a, **kw))
+            warm_ms = _time_ms(lambda: kern(**a, **kw), cold=False)
+            plain_ms = _time_ms(lambda: plain[name](**a, **kw), iters=5)
+            lib = _library_call(name, a, window)
             lib_ms = _time_ms(lib) if lib is not None else None
+            launch = ({} if name == "attn_with_importance"
+                      else dense_launch(name, shape))
             rec = dict(name=name, case=label, dtype=str(dtype),
-                       shape=list(shape), ok=good, max_abs_err=err, ms=ms,
+                       shape=list(shape), **opts, **launch, ok=good,
+                       max_abs_err=err, ms=ms,
                        ms_l2_warm=warm_ms, plain_ms=plain_ms,
                        library_ms=lib_ms,
                        bound_ms=max(t_bytes, t_flops),
@@ -597,9 +668,10 @@ class HostTimer:
 
 def profile_device_share(fn):
     """Run ``fn`` under torch.profiler (device activity only, to keep the
-    trace small); returns (wall s, summed kernel time s, top kernels
-    [(name, s, calls)]), or None when the profiler reports no device
-    time.  The profiler slows the host, so the share is a lower bound."""
+    trace small); returns (wall s, summed kernel time s, every kernel
+    [(name, s, calls)] by time), or None when the profiler reports no
+    device time.  The profiler slows the host, so the share is a lower
+    bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -616,7 +688,7 @@ def profile_device_share(fn):
     if not rows:
         return None
     rows.sort(key=lambda r: -r[1])
-    return wall, sum(r[1] for r in rows), rows[:8]
+    return wall, sum(r[1] for r in rows), rows
 
 
 def profile_host_ops(fn):
@@ -725,8 +797,13 @@ def phase_full_width(state):
         log(f"[full] profiled run_synera (2 prompts, max_new=4): wall "
             f"{pw:.2f} s, kernel time {busy:.3f} s, device busy share "
             f"{busy / pw:.3f}")
-        for name, sec, calls in top:
+        for name, sec, calls in top[:8]:
             log(f"[full]   {sec:8.4f} s {calls:7d} calls  {name[:90]}")
+        # the port's attention kernels in the window, wherever they rank
+        for name, sec, calls in top:
+            if any(k in name for k in PORT_KERNEL_SYMBOLS):
+                log(f"[full]   port kernel: {sec:8.4f} s {calls:7d} calls  "
+                    f"{name[:90]}")
 
     # full-width forward: kernel path against the plain attention path
     toks = torch.tensor([prompts[0][:48]], device="cuda")

@@ -3,7 +3,8 @@
 One module per kernel of the reference's ``repro/kernels``; all six of
 its Pallas entry points are carried: ``decode_gqa`` and
 ``partial_prefill`` (each a dense and a paged entry point; ``paged``
-holds the block-table layout arithmetic and split merge both share),
+holds the block-table layout arithmetic and split merge both share,
+``splits`` the dense kernels' split-KV count and its plain partials),
 ``attn_importance``, and ``ssd_scan`` (the Mamba2 SSD scan).  Each entry
 point has its wrapper, its plain PyTorch version and a launch counter.
 The wrapper takes the plain version only for tensors on the

@@ -29,11 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "decode_gqa": {
-        "decode_gqa_launch": [_P] * 6 + [_I] * 7 + [_P],
+        "decode_gqa_launch": [_P] * 9 + [_I] * 8 + [_P],
         "decode_gqa_paged_launch": [_P] * 10 + [_I] * 10 + [_P],
     },
     "partial_prefill": {
-        "partial_prefill_launch": [_P] * 6 + [_I] * 8 + [_P],
+        "partial_prefill_launch": [_P] * 9 + [_I] * 9 + [_P],
         "partial_prefill_paged_launch": [_P] * 10 + [_I] * 11 + [_P],
     },
     "attn_importance": {

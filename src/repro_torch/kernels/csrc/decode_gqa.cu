@@ -13,30 +13,38 @@
 // What bounds it on the card: bytes.  A decode step does 4 * hd flops per
 // (head, key) and reads 2 * hd elements of K/V per (kv head, key), under
 // one flop per byte, far below the ~295 flops/byte the H100 needs before
-// compute limits.  The whole cost is streaming K/V from device memory --
-// and, measured, the latency of each block's serial tile loads, since
-// few blocks are in flight.
+// compute limits.  The whole cost is streaming the K/V rows the query
+// may see out of device memory, and at serving shapes (a few hundred
+// written rows per slot) that stream is short, so what decides the time
+// is how many loads are in flight at once across the 132 SMs and how
+// much latency each block pays before its first byte arrives.
 //
-// Design: one tile loop, templated over the KV addressing (DenseKV /
+// Design.  One tile loop, templated over the KV addressing (DenseKV /
 // PagedKV in attn_common.cuh), so the two layouts differ only in where a
-// key row and its position are found.  One block per (slot, kv group,
-// split).  The g query heads of the group sit scaled in shared memory and
-// every K/V tile is staged once for all of them, so each K/V byte leaves
-// device memory once per step (the TPU kernel's g-fold saving, kept).
-// Tiles whose positions are all masked (unwritten or unmapped rows, keys
-// outside the window) are skipped after reading only their int32
-// positions, and a masked key's K/V is never loaded.  The paged kernel
-// first copies its split's block-table entries into shared memory, so
-// the dependent load (entry, then row) costs its latency once per block.
-// Inside a tile, each warp owns one (head, 32-key sub-tile) pair: lane j
-// scores key j, the online-softmax state (m, l, acc) of the pair lives in
-// shared memory in f32, and p_j is broadcast by shuffle for the P.V
-// update.  When the group has fewer heads than warps (g = 1 for the
-// paper's pair), the tile is split across warps and the per-warp partials
-// are merged at the end, so no warp idles.  With more than one KV split
-// (the reference's flash-decode split-KV) each block writes f32 partials
-// and combine_splits_kernel merges them in split order.  No atomics: every
-// merge order is fixed.
+// key row and its position are found.  One block of four warps per
+// (slot, kv group, split):
+// * The needed-tile walk (build_tile_list): the block reads its range's
+//   int32 positions once, keeps the 32-key tiles the query may see, and
+//   walks only that list; a masked key's K/V is never read.
+// * Split-KV for both layouts.  The dense kernel cuts the list into the
+//   host's split count of equal shares (kernels/splits.py, from shapes
+//   alone: about two blocks per SM); the paged kernel's splits are the
+//   reference's table ranges.  Each split writes f32 partials (m,
+//   l, acc), a split with no tile writes (NEG_INF, 0, 0), and
+//   combine_splits_kernel merges them in split order; with one split the
+//   block finishes in place.  No atomics: every merge order is fixed.
+// * A ring of 32-key tiles in shared memory (TileRing): 16-byte cp.async
+//   copies, zero-filled for masked keys, two or three tiles in flight
+//   while one is computed, one barrier per tile.
+// * The g query heads of the group sit scaled in shared memory (f32) and
+//   every staged tile serves all of them, so each K/V byte leaves device
+//   memory once per step (the TPU kernel's g-fold saving, kept).
+// * The warp split of a tile: with g >= 4 each warp owns whole heads and
+//   lane j scores key j.  With g < 4 the tile's keys are split across the
+//   warps (4 / g key streams of 32 g / 4 keys, each with its own online-
+//   softmax state, merged at the end in a fixed order), and the 4 / g
+//   lanes of one key split its dot product, so no warp idles.  Scores,
+//   softmax and P.V run on the CUDA cores in f32.
 #include "attn_common.cuh"
 
 namespace {
@@ -44,32 +52,56 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
+// 16 bytes of a staged row as f32
+__device__ __forceinline__ void chunk_f32(const float* p, float* x) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  x[0] = t.x;
+  x[1] = t.y;
+  x[2] = t.z;
+  x[3] = t.w;
+}
+__device__ __forceinline__ void chunk_f32(const __nv_bfloat16* p, float* x) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is exact: the high half
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 template <typename T, int HD, typename KV>
 __global__ void __launch_bounds__(kThreads)
     decode_gqa_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ q_pos,
                       KV kv, T* __restrict__ out, float* __restrict__ ws_m,
                       float* __restrict__ ws_l, float* __restrict__ ws_acc,
-                      int nkv, int g, int wsplits, int table_ints, int window,
-                      float scale) {
-  constexpr int KP = KPitch<T, HD>::value;
-  constexpr int ND = (HD + 31) / 32;  // head dims owned by one lane
+                      int nkv, int g, int wsplits, int table_ints,
+                      int n_tiles, int window, float scale) {
+  using Ring = TileRing<T, HD>;
+  constexpr int KP = Ring::KP;
+  constexpr int CE = Ring::kChunk;
+  constexpr int NCH = Ring::kChunks;
+  constexpr int ND = (HD + 31) / 32;  // P.V dims owned by one lane
   const int b = blockIdx.x / nkv;
   const int kvh = blockIdx.x % nkv;
   const int nh = nkv * g;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int TK = 32 * wsplits;  // keys per tile
-  const int P = g * wsplits;    // (head, sub-tile) pairs
+  const int P = g * wsplits;       // (head, key stream) pairs
+  const int KPW = 32 / wsplits;    // keys of a tile per stream
+  const int kk = lane % KPW;       // this lane's key within its stream
+  const int part = lane / KPW;     // and its share of the dot product
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);  // g x HD, scaled
-  float* m_s = q_s + g * HD;                         // P
-  float* l_s = m_s + P;                              // P
-  float* acc_s = l_s + P;                            // P x HD
-  int* kp_s = reinterpret_cast<int*>(acc_s + P * HD);  // TK
-  int* tbl_s = kp_s + TK;                            // table_ints
-  T* k_s = reinterpret_cast<T*>(tbl_s + table_ints);  // TK x KP
-  T* v_s = k_s + TK * KP;                            // TK x HD
+  Ring ring{smem_raw};                                   // kStages slots
+  float* q_s = reinterpret_cast<float*>(smem_raw + Ring::kBytes);  // g x HD
+  float* m_s = q_s + g * HD;                             // P
+  float* l_s = m_s + P;                                  // P
+  float* acc_s = l_s + P;                                // P x HD
+  unsigned* mask_s = reinterpret_cast<unsigned*>(acc_s + P * HD);  // n_tiles
+  int* list_s = reinterpret_cast<int*>(mask_s + n_tiles);  // n_tiles
+  int* n_s = list_s + n_tiles;                           // 1
+  int* tbl_s = n_s + 1;                                  // table_ints
 
   kv.bind(b, kvh, blockIdx.y, tbl_s);
   for (int i = tid; i < g * HD; i += kThreads) {
@@ -83,80 +115,100 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < P * HD; i += kThreads) acc_s[i] = 0.f;
   const int qp = q_pos[b];
   __syncthreads();  // table entries in place
-  const int lo = kv.lo(), hi = kv.hi();
 
-  for (int s0 = lo; s0 < hi; s0 += TK) {
-    __syncthreads();  // previous tile fully consumed
-    bool needed = false;
-    if (tid < TK) {
-      const int s = s0 + tid;
-      const int kp = s < hi ? kv.position(s) : -1;
-      kp_s[tid] = kp;
-      needed = kp >= 0 && kp <= qp && (window == 0 || qp - kp < window);
-    }
-    if (!__syncthreads_or(needed)) continue;
-    for (int i = tid; i < TK * HD; i += kThreads) {
-      const int j = i / HD, d = i % HD;
-      T kx = from_f32<T>(0.f), vx = from_f32<T>(0.f);
-      if (kp_s[j] >= 0) {  // in range and mapped
-        const size_t src = kv.row(s0 + j) * HD + d;
-        kx = k[src];
-        vx = v[src];
-      }
-      k_s[j * KP + d] = kx;
-      v_s[j * HD + d] = vx;
-    }
-    __syncthreads();
+  // an idle slot (q_pos < 0) sees no key
+  const int n =
+      qp >= 0 ? build_tile_list(kv, qp, qp, window, mask_s, list_s, n_s) : 0;
+  const int2 share = KV::kCutsList ? list_share(n, blockIdx.y, gridDim.y)
+                                   : make_int2(0, n);
+  const int cnt = share.y - share.x;
+  const int* tiles = list_s + share.x;
 
+#pragma unroll
+  for (int i = 0; i < Ring::kStages - 1; ++i) {
+    if (i < cnt) ring.load(kv, k, v, tiles[i], mask_s[tiles[i]], i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < cnt; ++i) {
+    cp_async_wait<Ring::kStages - 2>();
+    __syncthreads();  // tile i landed; tile i - 1's slot is free
+    const int nx = i + Ring::kStages - 1;
+    if (nx < cnt)
+      ring.load(kv, k, v, tiles[nx], mask_s[tiles[nx]], nx % Ring::kStages);
+    cp_async_commit();
+
+    const int slot = i % Ring::kStages;
+    const int* kp_t = ring.pos(slot);
+    const T* k_t = ring.k(slot);
+    const T* v_t = ring.v(slot);
     for (int p = warp; p < P; p += kWarps) {
-      const int h = p % g, sub = p / g;
-      const int j = sub * 32 + lane;
-      const int kp = kp_s[j];
-      const bool valid =
-          kp >= 0 && kp <= qp && (window == 0 || qp - kp < window);
+      const int h = p % g, stream = p / g;
+      const int j = stream * KPW + kk;
+      const bool valid = row_sees(kp_t[j], qp, window);
       const float* qh = q_s + h * HD;
-      const T* kj = k_s + j * KP;
+      const T* kj = k_t + j * KP;
       float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) s += qh[d] * to_f32(kj[d]);
+      for (int c = part; c < NCH; c += wsplits) {
+        float kx[CE], qx[CE];
+        chunk_f32(kj + c * CE, kx);
+#pragma unroll
+        for (int e = 0; e < CE; e += 4) {
+          const float4 t4 = *reinterpret_cast<const float4*>(qh + c * CE + e);
+          qx[e] = t4.x;
+          qx[e + 1] = t4.y;
+          qx[e + 2] = t4.z;
+          qx[e + 3] = t4.w;
+        }
+#pragma unroll
+        for (int e = 0; e < CE; ++e) s += qx[e] * kx[e];
+      }
+      for (int o = KPW; o < 32; o <<= 1)
+        s += __shfl_xor_sync(ATTN_FULL_MASK, s, o);
       s = valid ? s : ATTN_NEG_INF;
 
+      float mx = s;
+      for (int o = 1; o < KPW; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(ATTN_FULL_MASK, mx, o));
       const float m_prev = m_s[p];
-      const float m_new = fmaxf(m_prev, warp_max(s));
+      const float m_new = fmaxf(m_prev, mx);
       const float corr = expf(m_prev - m_new);
       const float pj = valid ? expf(s - m_new) : 0.f;
-      const float psum = warp_sum(pj);
+      float psum = pj;
+      for (int o = 1; o < KPW; o <<= 1)
+        psum += __shfl_xor_sync(ATTN_FULL_MASK, psum, o);
 
       float a[ND];
 #pragma unroll
-      for (int i = 0; i < ND; ++i) {
-        const int d = lane + 32 * i;
-        a[i] = d < HD ? acc_s[p * HD + d] * corr : 0.f;
+      for (int e = 0; e < ND; ++e) {
+        const int d = lane + 32 * e;
+        a[e] = d < HD ? acc_s[p * HD + d] * corr : 0.f;
       }
-      const T* vt = v_s + sub * 32 * HD;
-      for (int jj = 0; jj < 32; ++jj) {
+      const T* vt = v_t + stream * KPW * KP;
+      for (int jj = 0; jj < KPW; ++jj) {
         const float pjj = __shfl_sync(ATTN_FULL_MASK, pj, jj);
 #pragma unroll
-        for (int i = 0; i < ND; ++i) {
-          const int d = lane + 32 * i;
-          if (d < HD) a[i] += pjj * to_f32(vt[jj * HD + d]);
+        for (int e = 0; e < ND; ++e) {
+          const int d = lane + 32 * e;
+          if (d < HD) a[e] += pjj * to_f32(vt[jj * KP + d]);
         }
       }
 #pragma unroll
-      for (int i = 0; i < ND; ++i) {
-        const int d = lane + 32 * i;
-        if (d < HD) acc_s[p * HD + d] = a[i];
+      for (int e = 0; e < ND; ++e) {
+        const int d = lane + 32 * e;
+        if (d < HD) acc_s[p * HD + d] = a[e];
       }
+      __syncwarp();  // every lane has read m_s[p] / l_s[p]
       if (lane == 0) {
         m_s[p] = m_new;
         l_s[p] = l_s[p] * corr + psum;
       }
     }
   }
+  cp_async_wait<0>();
   __syncthreads();
 
-  // merge the per-warp partials of each head in a fixed order; with one
-  // KV split finish acc / l here, else write this split's partials
+  // merge the key streams of each head in a fixed order; with one split
+  // finish acc / l here, else write this split's partials
   const bool finish = gridDim.y == 1;
   const size_t ws_row = ((size_t)blockIdx.x * gridDim.y + blockIdx.y) * g;
   for (int i = tid; i < g * HD; i += kThreads) {
@@ -186,15 +238,17 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int HD, typename KV>
 int launch(const void* q, const void* k, const void* v, const void* q_pos,
            KV kv, void* out, float* ws_m, float* ws_l, float* ws_acc, int B,
-           int nh, int nkv, int splits, int split_entries, int window,
-           cudaStream_t stream) {
+           int nh, int nkv, int splits, int split_entries, int keys,
+           int window, cudaStream_t stream) {
   const int g = nh / nkv;
-  const int wsplits = g >= kWarps ? 1 : kWarps / g;
-  const int TK = 32 * wsplits, P = g * wsplits;
+  // key streams per tile: 4 / g when g divides 4 warps' worth of heads
+  const int wsplits = g == 1 ? 4 : g == 2 ? 2 : 1;
+  const int P = g * wsplits;
   const int table_ints = KV::table_ints(split_entries);
-  const size_t smem = sizeof(float) * (g * HD + 2 * P + P * HD) +
-                      sizeof(int) * (TK + table_ints) +
-                      sizeof(T) * TK * (KPitch<T, HD>::value + HD);
+  const int n_tiles = (keys + kTileKeys - 1) / kTileKeys;
+  const size_t smem = TileRing<T, HD>::kBytes +
+                      sizeof(float) * (g * HD + 2 * P + P * HD) +
+                      sizeof(int) * (2 * n_tiles + 1 + table_ints);
   auto kernel = decode_gqa_kernel<T, HD, KV>;
   cudaError_t err = attn_set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -202,7 +256,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(q_pos), kv,
       static_cast<T*>(out), ws_m, ws_l, ws_acc, nkv, g, wsplits, table_ints,
-      window, 1.0f / sqrtf((float)HD));
+      n_tiles, window, 1.0f / sqrtf((float)HD));
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   return launch_combine<T>(ws_m, ws_l, ws_acc, static_cast<T*>(out),
@@ -212,17 +266,23 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos,
 }  // namespace
 
 // q (B, nh, hd); k, v (B, S, nkv, hd); q_pos (B,) int32; kv_pos (B, S)
-// int32; out (B, nh, hd).  All contiguous, on one device.
+// int32; out (B, nh, hd).  splits: the host's split-KV count
+// (kernels/splits.py); with splits > 1, ws_m, ws_l (B * nkv, splits, g)
+// and ws_acc (B * nkv, splits, g, hd) are f32 scratch.  All contiguous,
+// on one device, k and v 16-byte aligned.
 extern "C" int decode_gqa_launch(const void* q, const void* k, const void* v,
                                  const void* q_pos, const void* kv_pos,
-                                 void* out, int B, int S, int nh, int nkv,
-                                 int hd, int window, int dtype,
+                                 void* out, void* ws_m, void* ws_l,
+                                 void* ws_acc, int B, int S, int nh, int nkv,
+                                 int hd, int splits, int window, int dtype,
                                  void* stream) {
-  if (nkv <= 0 || nh % nkv != 0) return (int)cudaErrorInvalidValue;
+  if (nkv <= 0 || nh % nkv != 0 || splits <= 0 || (splits > 1 && !ws_acc))
+    return (int)cudaErrorInvalidValue;
   DenseKV kv{static_cast<const int*>(kv_pos), S, nkv};
   ATTN_DISPATCH_DTYPE(dtype, ATTN_DISPATCH_HD(hd, return launch<T, HD>(
-      q, k, v, q_pos, kv, out, nullptr, nullptr, nullptr, B, nh, nkv, 1, 0,
-      window, static_cast<cudaStream_t>(stream))));
+      q, k, v, q_pos, kv, out, static_cast<float*>(ws_m),
+      static_cast<float*>(ws_l), static_cast<float*>(ws_acc), B, nh, nkv,
+      splits, 0, S, window, static_cast<cudaStream_t>(stream))));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -230,7 +290,8 @@ extern "C" int decode_gqa_launch(const void* q, const void* k, const void* v,
 // pos_pool (nb, bs) int32; block_tables (B, max_bps) int32; out (B, nh,
 // hd).  splits / split_entries: the reference's fused_layout (splits and
 // spb * fuse).  With splits > 1, ws_m, ws_l (B * nkv, splits, g) and
-// ws_acc (B * nkv, splits, g, hd) are f32 scratch.  All contiguous.
+// ws_acc (B * nkv, splits, g, hd) are f32 scratch.  All contiguous, the
+// pools 16-byte aligned.
 extern "C" int decode_gqa_paged_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* q_pos,
     const void* pos_pool, const void* block_tables, void* out, void* ws_m,
@@ -246,6 +307,7 @@ extern "C" int decode_gqa_paged_launch(
   ATTN_DISPATCH_DTYPE(dtype, ATTN_DISPATCH_HD(hd, return launch<T, HD>(
       q, k_pool, v_pool, q_pos, kv, out, static_cast<float*>(ws_m),
       static_cast<float*>(ws_l), static_cast<float*>(ws_acc), B, nh, nkv,
-      splits, split_entries, window, static_cast<cudaStream_t>(stream))));
+      splits, split_entries, split_entries * bs, window,
+      static_cast<cudaStream_t>(stream))));
   return (int)cudaErrorInvalidValue;
 }

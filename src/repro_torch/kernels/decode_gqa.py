@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels import (NEG_INF, build, check_kernel_inputs, on_cpu,
                                  raise_on_error, stream_ptr)
 from repro_torch.kernels import paged as PG
+from repro_torch.kernels import splits as SP
 
 # kernel launches since the last reset (plain calls excluded)
 launches = 0          # decode_attention
@@ -46,7 +47,9 @@ def decode_attention_ref(q, k, v, q_pos, kv_pos, *, window: int = 0):
 
 def decode_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
     """Same contract as :func:`decode_attention_ref`; launches the CUDA
-    kernel for CUDA tensors."""
+    kernel for CUDA tensors, cut into ``splits.dense_splits`` KV splits
+    (f32 partials merged by a second kernel when there is more than
+    one)."""
     global launches
     if on_cpu(q, k, v, q_pos, kv_pos):
         return decode_attention_ref(q, k, v, q_pos, kv_pos, window=window)
@@ -60,11 +63,15 @@ def decode_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
     if nh % nkv:
         raise ValueError(f"decode_attention: nh {nh} % nkv {nkv} != 0")
     code = check_kernel_inputs("decode_attention", (q, k, v), (q_pos, kv_pos))
+    SP.check_aligned("decode_attention", k, v)
+    g = nh // nkv
+    splits = SP.dense_splits(B, nkv, g, S, SP.sm_count(q.device))
     out = torch.empty_like(q)
+    ws = PG.split_workspace(B * nkv, splits, g, hd, q.device)
     fn = build.library("decode_gqa").decode_gqa_launch
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-             kv_pos.data_ptr(), out.data_ptr(), B, S, nh, nkv, hd,
-             int(window), code, stream_ptr(q))
+             kv_pos.data_ptr(), out.data_ptr(), *PG.workspace_ptrs(ws), B, S,
+             nh, nkv, hd, splits, int(window), code, stream_ptr(q))
     raise_on_error("decode_attention", err)
     launches += 1
     return out
@@ -102,6 +109,7 @@ def decode_attention_paged(q, k_pool, v_pool, q_pos, pos_pool, block_tables,
     PG.check_paged_inputs("decode_attention_paged", *args, (B,))
     code = check_kernel_inputs("decode_attention_paged", (q, k_pool, v_pool),
                                (q_pos, pos_pool, block_tables))
+    SP.check_aligned("decode_attention_paged", k_pool, v_pool)
     max_bps = block_tables.shape[1]
     fuse, splits, spb = PG.fused_layout(max_bps, bs, block_kv, kv_splits)
     out = torch.empty_like(q)

@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import (NEG_INF, build, check_kernel_inputs, on_cpu,
                                  raise_on_error, stream_ptr)
 from repro_torch.kernels import paged as PG
+from repro_torch.kernels import splits as SP
 
 # kernel launches since the last reset (plain calls excluded)
 launches = 0          # partial_prefill_attention
@@ -47,7 +48,9 @@ def partial_prefill_ref(q, k, v, q_pos, kv_pos, *, window: int = 0):
 
 def partial_prefill_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
     """Same contract as :func:`partial_prefill_ref`; launches the CUDA
-    kernel for CUDA tensors."""
+    kernel for CUDA tensors, cut into ``splits.dense_splits`` KV splits
+    (f32 partials merged by a second kernel when there is more than
+    one)."""
     global launches
     if on_cpu(q, k, v, q_pos, kv_pos):
         return partial_prefill_ref(q, k, v, q_pos, kv_pos, window=window)
@@ -63,11 +66,15 @@ def partial_prefill_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
         raise ValueError(f"partial_prefill_attention: nh {nh} % nkv {nkv}")
     code = check_kernel_inputs("partial_prefill_attention", (q, k, v),
                                (q_pos, kv_pos))
+    SP.check_aligned("partial_prefill_attention", q, k, v)
+    rows = (nh // nkv) * C
+    splits = SP.dense_splits(B, nkv, rows, S, SP.sm_count(q.device))
     out = torch.empty_like(q)
+    ws = PG.split_workspace(B * nkv, splits, rows, hd, q.device)
     fn = build.library("partial_prefill").partial_prefill_launch
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-             kv_pos.data_ptr(), out.data_ptr(), B, C, S, nh, nkv, hd,
-             int(window), code, stream_ptr(q))
+             kv_pos.data_ptr(), out.data_ptr(), *PG.workspace_ptrs(ws), B, C,
+             S, nh, nkv, hd, splits, int(window), code, stream_ptr(q))
     raise_on_error("partial_prefill_attention", err)
     launches += 1
     return out
@@ -104,6 +111,7 @@ def partial_prefill_attention_paged(q, k_pool, v_pool, q_pos, pos_pool,
     code = check_kernel_inputs("partial_prefill_attention_paged",
                                (q, k_pool, v_pool),
                                (q_pos, pos_pool, block_tables))
+    SP.check_aligned("partial_prefill_attention_paged", q, k_pool, v_pool)
     max_bps = block_tables.shape[1]
     fuse, splits, spb = PG.fused_layout(max_bps, bs, block_kv, kv_splits)
     out = torch.empty_like(q)

@@ -171,3 +171,82 @@ def test_wrappers_refuse_mixed_and_foreign_devices():
         on_cpu(cpu, torch.zeros(2, device="meta"))
     with pytest.raises(ValueError):
         on_cpu(torch.zeros(2, device="meta"))
+
+
+def _smoke_module():
+    """chip_smoke.py, for its phase-2 kernel cases (numpy only at import)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SMOKE = _smoke_module()
+DENSE_CASES = [(i, c) for i, c in enumerate(_SMOKE.KERNEL_CASES)
+               if c[0] in ("decode_attention", "partial_prefill_attention")]
+
+
+@pytest.mark.parametrize("index,case", DENSE_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for _, c in DENSE_CASES])
+def test_dense_split_contract(index, case):
+    """The dense kernels' split-KV layout at chip_smoke.py's phase-2
+    shapes (the serving shapes and the edge shapes: S not a multiple of
+    32, one needed tile, an idle slot, a window, g in {1, 2, 4, 8}, hd in
+    {16, 32, 64, 128}).  The host's split count is at least 1 and a
+    function of the shapes alone; the plain per-split partials, merged by
+    ``paged.combine_splits``, give the unsplit plain output within f32
+    2e-5, at that count and at 3 splits; padded rows and idle slots give
+    exactly 0.  The numbers are checked on the first two slots and kv
+    heads of each shape (the groups are independent)."""
+    import inspect
+    from repro_torch.kernels import paged as PG
+    from repro_torch.kernels import splits as SP
+    name, _, shape, _, opts = case
+    window = opts.get("window", 0)
+    decode = name == "decode_attention"
+    if decode:
+        B, S, nh, nkv, hd = shape[:5]
+        C = 1
+    else:
+        B, C, S, nh, nkv, hd = shape[:6]
+    g = nh // nkv
+    n = SP.dense_splits(B, nkv, g * C, S)
+    assert isinstance(n, int) and n >= 1
+    assert set(inspect.signature(SP.dense_splits).parameters) == {
+        "B", "nkv", "rows", "S", "sms"}
+    assert SP.dense_splits(B, nkv, g * C, S) == n
+
+    qp, kp = _SMOKE.case_positions(name, shape, opts,
+                                   np.random.default_rng(100 + index))
+    b2, k2 = min(B, 2), min(nkv, 2)
+    rng = np.random.default_rng(index)
+    q = torch.from_numpy(rng.standard_normal(
+        (b2, C, k2 * g, hd)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal(
+        (b2, S, k2, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal(
+        (b2, S, k2, hd)).astype(np.float32))
+    q_pos = torch.from_numpy(qp[:b2].reshape(b2, C).copy())
+    kv_pos = torch.from_numpy(kp[:b2].copy())
+    if decode:
+        ref = decode_gqa.decode_attention_ref(
+            q[:, 0], k, v, q_pos[:, 0], kv_pos, window=window)[:, None]
+    else:
+        ref = partial_prefill.partial_prefill_ref(q, k, v, q_pos, kv_pos,
+                                                  window=window)
+    for splits in sorted({n, 3}):
+        m, l, acc = SP.dense_partials(q, k, v, q_pos, kv_pos, window=window,
+                                      splits=splits)
+        assert m.shape == (b2 * k2, splits, g * C)
+        got = PG.combine_splits(m, l, acc, torch.float32)  # (N, g C, hd)
+        got = got.reshape(b2, k2, C, g, hd).permute(0, 2, 1, 3, 4).reshape(
+            b2, C, k2 * g, hd)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5,
+                                   rtol=2e-5)
+        pad = q_pos < 0
+        assert bool((got[pad] == 0).all())
+    if opts.get("idle"):
+        assert bool((got[1] == 0).all())

@@ -400,3 +400,11 @@ def test_paged_cache_refuses_ssm():
     cfg = get_config("mamba2-2.7b").reduced()
     with pytest.raises(ValueError, match="paged"):
         TM.init_cache(cfg, 1, 32, cache_impl="paged", device="cpu")
+
+
+def test_cloud_engine_refuses_ssm():
+    from repro_torch.serving.engine import CloudEngine
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = TM.init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match="ssm"):
+        CloudEngine(cfg, params, max_slots=1, s_max=32, device="cpu")
