@@ -6,11 +6,16 @@
 Phase 1 builds the hand-written kernels from ``src/repro_torch/kernels/
 csrc`` with nvcc for sm_90a.  Phase 2 holds each kernel against its plain
 PyTorch version on the card at the main path's shapes (plus GQA and
-window shapes, and the dense kernels' edge shapes: S not a multiple of
-32, one needed tile, an idle slot, g up to 8, hd 16-128, each logged with
-its split count and grid; the paged kernels also at three split
-layouts), in float32 and bfloat16, and times kernel, plain version and
-one library call with L2 flushed before each timed call.  Phase 3 serves
+window shapes, and the edge shapes of the tile walks: S not a multiple
+of 32, one needed tile, an idle slot, g up to 8, hd 16-128, 16 query rows
+and S = 4096 for attn_with_importance, each dense launch logged with its
+split count and grid; the paged kernels also at three split layouts;
+ssd_scan at batch 1, over four chunks and at N = 64), in float32 and
+bfloat16, requires attn_with_importance and ssd_scan to give the same
+bits on a second call and a slot no query may see to get importance
+exactly 0, and times kernel, plain version and one library call with L2
+flushed before each timed call, beside an empty kernel's time under the
+same harness.  Phase 3 serves
 ``run_synera`` and ``run_cloud_centric`` end to end with the paper's
 SLM/LLM pair at full width on the dense cache (random weights from a
 seed) and checks that every kernel of the path was launched.  Phase 4
@@ -79,9 +84,12 @@ DENSE_PATH = ("decode_attention", "partial_prefill_attention",
               "attn_with_importance")
 PAGED_PATH = ("decode_attention_paged", "partial_prefill_attention_paged")
 SSM_PATH = ("ssd_scan",)
-# CUDA symbols of the port's attention kernels (profiler rows)
+# CUDA symbols of the port's kernels (profiler rows): the attention
+# kernels, and the four passes of one ssd_scan call
 PORT_KERNEL_SYMBOLS = ("decode_gqa_kernel", "partial_prefill_kernel",
                        "attn_importance_kernel", "combine_splits_kernel")
+SSD_KERNEL_SYMBOLS = ("ssd_prep_kernel", "ssd_state_kernel",
+                      "ssd_carry_kernel", "ssd_output_kernel")
 
 
 def log(*a):
@@ -272,11 +280,12 @@ def _library_call(name, a, window=0):
 # (kernel, label, shape, main-path?, options)  Shapes: decode (B, S, nh,
 # nkv, hd, fill lo, fill hi); others (B, C, S, nh, nkv, hd, fill lo, fill
 # hi).  The fills match phase 3: prompts of 64-256 tokens plus 32
-# generated.  After the serving shapes come the edge shapes of the dense
-# kernels' needed-tile walk and split-KV layout: S not a multiple of 32,
-# one needed tile, an idle slot (q_pos -1), a window, g in {1, 2, 4, 8}
-# and hd in {16, 32, 64, 128}.  Options: ``window`` (the kernel's
-# argument), ``idle`` (slot 1 has no query).
+# generated.  After the serving shapes come the edge shapes of the
+# kernels' needed-tile walk (and the dense kernels' split-KV layout): S
+# not a multiple of 32, one needed tile, an idle slot (q_pos -1), a
+# window, g in {1, 2, 4, 8}, hd in {16, 32, 64, 128}, and for
+# attn_with_importance 16 query rows and S = 4096.  Options: ``window``
+# (the kernel's argument), ``idle`` (slot 1 has no query).
 KERNEL_CASES = [
     ("decode_attention", "cloud decode", (8, 2048, 32, 32, 128, 64, 320), True,
      {}),
@@ -294,6 +303,16 @@ KERNEL_CASES = [
      True, {}),
     ("attn_with_importance", "gqa g=4", (2, 8, 256, 8, 2, 64, 32, 200), False,
      {}),
+    ("attn_with_importance", "S=1000 g=2", (2, 1, 1000, 8, 4, 64, 100, 990),
+     False, {}),
+    ("attn_with_importance", "idle slot", (4, 1, 512, 12, 12, 64, 64, 288),
+     False, {"idle": True}),
+    ("attn_with_importance", "Tq=16 g=8 hd=128",
+     (2, 16, 512, 16, 2, 128, 32, 400), False, {}),
+    ("attn_with_importance", "S=4096 hd=32", (2, 1, 4096, 8, 8, 32, 1000, 4000),
+     False, {}),
+    ("attn_with_importance", "one needed tile", (4, 1, 512, 12, 12, 64, 0, 20),
+     False, {}),
     ("decode_attention", "S=1000 g=2", (4, 1000, 16, 8, 64, 100, 990), False,
      {}),
     ("decode_attention", "one needed tile", (4, 512, 8, 8, 32, 0, 20), False,
@@ -349,10 +368,18 @@ def phase_kernels():
             out_p = plain[name](**a, **kw)
             torch.cuda.synchronize()
             atol, rtol = TOL[str(dtype)]
+            valid = _valid(name, a, window)
             if name == "attn_with_importance":
                 (ok_, ik), (op, ip) = out_k, out_p
+                again = kern(**a, **kw)
+                # a slot no row may see has importance exactly 0, and a
+                # second call gives the same bits (imp feeds thresholds)
+                masked = ~valid.any(dim=1)[:, None].expand_as(ik)
                 good = (_close(ok_, op, atol, rtol)
-                        and _close(ik, ip, IMP_ATOL, 0.0))
+                        and _close(ik, ip, IMP_ATOL, 0.0)
+                        and bool((ik[masked] == 0).all())
+                        and torch.equal(again[0], ok_)
+                        and torch.equal(again[1], ik))
                 err = max(float((ok_.float() - op.float()).abs().max()),
                           float((ik - ip).abs().max()))
                 out_bytes = ok_.numel() * ok_.element_size() + ik.numel() * 4
@@ -363,7 +390,6 @@ def phase_kernels():
                 # padded rows and idle slots come out exactly 0
                 pad = a["q_pos"] < 0
                 good = good and bool((out_k[pad] == 0).all())
-            valid = _valid(name, a, window)
             nh, hd = a["q"].shape[-2], a["q"].shape[-1]
             pos_bytes = (a["q_pos"].numel() + a["kv_pos"].numel()) * 4
             nbytes, flops = _bytes_flops(a["q"], a["k"], out_bytes, valid,
@@ -391,6 +417,11 @@ def phase_kernels():
                 main[name] = rec
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version")
+    # the floor under any of these times: one kernel that does nothing
+    # (a zero-cycle sleep), timed by the same harness
+    floor = _time_ms(lambda: torch.cuda._sleep(0))
+    log(f"[kernels] empty kernel under _time_ms (launch floor): {floor} ms")
+    main["attn_with_importance"]["empty_kernel_ms"] = floor
     main.update(phase_paged_kernels())
     main.update(phase_ssd_kernel())
     return main
@@ -539,11 +570,16 @@ def phase_paged_kernels():
 
 # SSD scan.  Shapes: (B, L, H, P, N, chunk, h0?).  mamba2-2.7b's widths;
 # B 4 and L 512 as phase 6's prefill, which passes the (zero) cache state
-# as h0; L 300 is not a multiple of the chunk.
+# as h0; L 300 is not a multiple of the chunk; batch 1 (80 heads x 2
+# chunks of blocks); L 1024 carries the state through four chunks; N 64
+# is zamba2's state width.
 SSD_CASES = [
     ("prefill, h0", (4, 512, 80, 64, 128, 256, True), True),
     ("no h0", (4, 512, 80, 64, 128, 256, False), False),
     ("L=300, h0", (4, 300, 80, 64, 128, 256, True), False),
+    ("B=1, h0", (1, 512, 80, 64, 128, 256, True), False),
+    ("L=1024, no h0", (2, 1024, 80, 64, 128, 256, False), False),
+    ("N=64, h0", (4, 512, 80, 64, 64, 256, True), False),
 ]
 
 
@@ -593,8 +629,9 @@ def _ssd_bytes_flops(a):
 
 def phase_ssd_kernel():
     """ssd_scan against its plain version on the card (y at TOL, h_final
-    at 10 x TOL, as tests/test_kernels.py holds the Pallas kernel); times
-    kernel (L2 cold and warm) and plain version.  No PyTorch call
+    at 10 x TOL, as tests/test_kernels.py holds the Pallas kernel; a
+    second call must give the same bits); times kernel (L2 cold and warm)
+    and plain version.  No PyTorch call
     computes an SSD scan, so the library time is none.  Returns the bf16
     main-path record."""
     import torch
@@ -605,11 +642,13 @@ def phase_ssd_kernel():
             a = _ssd_case(shape, dtype, seed=300 + i)
             yk, hk = SS.ssd_scan(**a)
             yp, hp = SS.ssd_scan_ref(**a)
+            y2, h2 = SS.ssd_scan(**a)
             torch.cuda.synchronize()
             atol, rtol = TOL[str(dtype)]
             good = (_close(yk, yp, atol, rtol)
                     and _close(hk, hp, 10 * atol, 10 * rtol)
-                    and bool(torch.isfinite(yk.float()).all()))
+                    and bool(torch.isfinite(yk.float()).all())
+                    and torch.equal(y2, yk) and torch.equal(h2, hk))
             nbytes, flops = _ssd_bytes_flops(a)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_flops = flops / PEAK_FLOPS[str(dtype)] * 1e3
@@ -1188,6 +1227,18 @@ def phase_ssm(cfg=None, *, batch=4, prompt_len=512, n_new=32,
     plain_cos = _cosine(last, plain_last)
     log(f"[ssm] prefill, kernel vs plain SSD path: cosine {plain_cos:.6f}, "
         f"max|diff| {float((last.float() - plain_last.float()).abs().max()):.5f}")
+    # how sharp that gate is (logged, not checked): the plain path at half
+    # the chunk is the same exact algorithm with its f32 sums split
+    # otherwise
+    if cfg.ssm_chunk % 2 == 0:
+        half_cfg = plain_cfg.replace(ssm_chunk=cfg.ssm_chunk // 2)
+        with torch.no_grad():
+            cache = M.init_cache(half_cfg, batch, prompt_len, device=device)
+            half_last, _ = S.make_prefill_step(half_cfg)(params, cache,
+                                                        prompts)
+        log(f"[ssm] prefill, plain SSD path at chunk {cfg.ssm_chunk // 2} vs "
+            f"{cfg.ssm_chunk} (same algorithm, other f32 order): cosine "
+            f"{_cosine(half_last, plain_last):.6f}")
 
     # profiled windows: the prefill, then 4 decode steps on its cache
     cache = M.init_cache(cfg, batch, prompt_len + 4, device=device)
@@ -1217,6 +1268,11 @@ def phase_ssm(cfg=None, *, batch=4, prompt_len=512, n_new=32,
                 f"{busy:.3f} s, device busy share {busy / pw:.3f}")
             for name, sec, calls in top[:5]:
                 log(f"[ssm]   {sec:8.4f} s {calls:7d} calls  {name[:90]}")
+            # the four passes of ssd_scan, wherever they rank
+            for name, sec, calls in top:
+                if any(k in name for k in SSD_KERNEL_SYMBOLS):
+                    log(f"[ssm]   port kernel: {sec:8.4f} s {calls:7d} calls"
+                        f"  {name[:90]}")
     n_ops, n_launches, top_ops = profile_host_ops(decode_window)
     log(f"[ssm] host, per decode step: {n_ops / 4:.0f} operator calls "
         f"({n_ops / 4 / cfg.n_layers:.0f} per layer), {n_launches / 4:.0f} "

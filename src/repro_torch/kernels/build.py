@@ -40,7 +40,7 @@ SIGNATURES = {
         "attn_importance_launch": [_P] * 7 + [_I] * 8 + [_P],
     },
     "ssd_scan": {
-        "ssd_scan_launch": [_P] * 8 + [_I] * 7 + [_P],
+        "ssd_scan_launch": [_P] * 12 + [_I] * 7 + [_P],
     },
 }
 

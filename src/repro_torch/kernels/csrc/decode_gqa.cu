@@ -52,24 +52,6 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
-// 16 bytes of a staged row as f32
-__device__ __forceinline__ void chunk_f32(const float* p, float* x) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  x[0] = t.x;
-  x[1] = t.y;
-  x[2] = t.z;
-  x[3] = t.w;
-}
-__device__ __forceinline__ void chunk_f32(const __nv_bfloat16* p, float* x) {
-  const uint4 t = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is exact: the high half
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 template <typename T, int HD, typename KV>
 __global__ void __launch_bounds__(kThreads)
     decode_gqa_kernel(const T* __restrict__ q, const T* __restrict__ k,

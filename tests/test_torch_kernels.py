@@ -250,3 +250,44 @@ def test_dense_split_contract(index, case):
         assert bool((got[pad] == 0).all())
     if opts.get("idle"):
         assert bool((got[1] == 0).all())
+
+
+IMP_CASES = [(i, c) for i, c in enumerate(_SMOKE.KERNEL_CASES)
+             if c[0] == "attn_with_importance"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("index,case", IMP_CASES,
+                         ids=[c[1] for _, c in IMP_CASES])
+def test_importance_phase2_shapes_match_pallas(index, case, dtype):
+    """attn_with_importance's plain version (the wrapper on CPU tensors)
+    against the reference's Pallas kernel in interpret mode, with explicit
+    positions, at chip_smoke.py's phase-2 importance shapes (the draft
+    step, GQA, S = 1000, an idle slot, 16 rows at g = 8 and hd 128, S =
+    4096 at hd 32, one needed tile), cut to the first two slots and kv
+    heads.  A slot that no row may see has importance exactly 0, and an
+    idle slot's rows are exactly 0."""
+    name, _, shape, _, opts = case
+    B, Tq, S, nh, nkv, hd = shape[:6]
+    g = nh // nkv
+    qp, kp = _SMOKE.case_positions(name, shape, opts,
+                                   np.random.default_rng(100 + index))
+    b2, k2 = min(B, 2), min(nkv, 2)
+    qp, kp = qp[:b2].copy(), kp[:b2].copy()
+    rng = np.random.default_rng(index)
+    qj, qt = _pair(rng, (b2, Tq, k2 * g, hd), dtype)
+    kj, kt = _pair(rng, (b2, S, k2, hd), dtype)
+    vj, vt = _pair(rng, (b2, S, k2, hd), dtype)
+    o1, i1 = ref_attn_with_importance(qj, kj, vj, jnp.asarray(qp),
+                                      jnp.asarray(kp), causal=True)
+    before = attn_importance.launches
+    o2, i2 = attn_importance.attn_with_importance(
+        qt, kt, vt, torch.from_numpy(qp), torch.from_numpy(kp), causal=True)
+    assert attn_importance.launches == before
+    np.testing.assert_allclose(_np(o2), _np(o1), **TOL[dtype])
+    np.testing.assert_allclose(_np(i2), _np(i1), atol=1e-3)
+    seen = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
+            & (kp[:, None, :] <= qp[:, :, None])).any(axis=1)   # (b2, S)
+    assert (_np(i2).transpose(1, 0, 2)[:, ~seen] == 0).all()
+    if opts.get("idle"):
+        assert (_np(o2)[1] == 0).all() and (_np(i2)[1] == 0).all()

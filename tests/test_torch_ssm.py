@@ -125,6 +125,47 @@ def test_ssd_scan_matches_pallas(B, L, H, P, N, chunk, use_h0, dtype):
         np.testing.assert_allclose(_np(h2), _np(h3), atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("B,L,H,P,N,chunk,use_h0", [
+    (2, 64, 3, 8, 8, 16, True),       # four chunks through the carry
+    (1, 50, 2, 16, 8, 16, False),     # L not a multiple of the chunk
+    (2, 70, 2, 8, 16, 32, True),
+    (1, 33, 3, 8, 4, 8, False),
+    (1, 96, 2, 16, 16, 32, True),
+    (2, 40, 1, 8, 8, 64, True),       # one chunk, shorter than chunk
+])
+def test_ssd_scan_passes_compose(B, L, H, P, N, chunk, use_h0):
+    """The CUDA kernel's passes in plain PyTorch (kernels/ssd_scan.py: the
+    dAc scan and C Bᵀ, the chunk states, the carry over chunks, the chunk
+    outputs) compose to ssd_scan_ref and to the reference's Pallas
+    ssd_scan in interpret mode within f32 2e-5; each pass matches its
+    definition (the scan against a cumsum, the carry's first state is h0
+    or 0 and its last is h_final)."""
+    rng = np.random.default_rng(20 + L)
+    j, t = _ssd_inputs(rng, B, L, H, P, N, use_h0, "float32")
+    x, dt, A, Bm, Cm, h0 = t
+    y, h = SS.ssd_scan_passes(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    y_ref, h_ref = SS.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    y_pl, h_pl = ref_ssd_scan(*j[:5], chunk=chunk, h0=j[5])
+    tol = TOL["float32"]
+    for got, want in ((y, y_ref), (h, h_ref), (y, y_pl), (h, h_pl)):
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+    Q = min(chunk, L)
+    nc = -(-L // Q)
+    dac = SS.ssd_chunk_cumsum(dt, A, chunk=chunk)
+    assert dac.shape == (B, nc, Q, H)
+    dA = SS._chunked(dt * A, Q)
+    np.testing.assert_allclose(_np(dac), _np(torch.cumsum(dA, dim=2)),
+                               **tol)
+    scores = SS.ssd_chunk_scores(Bm, Cm, chunk=chunk)
+    assert scores.shape == (B, nc, Q, Q)
+    states = SS.ssd_chunk_states(x, dt, Bm, dac, chunk=chunk)
+    h_in, h_last = SS.ssd_state_carry(states, dac, h0)
+    assert h_in.shape == (B, nc, H, P, N)
+    first = torch.zeros_like(h_in[:, 0]) if h0 is None else h0
+    assert torch.equal(h_in[:, 0], first) and torch.equal(h_last, h)
+
+
 def test_ssd_op_adds_skip_term():
     rng = np.random.default_rng(5)
     j, t = _ssd_inputs(rng, 2, 40, 3, 8, 8, True, "float32")

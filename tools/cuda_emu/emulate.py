@@ -1,0 +1,244 @@
+"""Run the port's CUDA kernels on the CPU, for logic checks without a card.
+
+    PYTHONPATH=src python tools/cuda_emu/emulate.py [attn_importance] [ssd_scan] [partial_prefill]
+
+Each kernel source under ``src/repro_torch/kernels/csrc`` is rewritten for
+the stub headers beside this file (the kernels' inline-PTX helpers become
+emulated ones, ``kernel<<<...>>>(`` launches become ``emu::launch`` calls,
+dynamic shared memory a per-block buffer), compiled with ``g++`` into
+``build/cuda_emu/``, and called through ``ctypes`` on CPU tensors at small
+shapes.  Its outputs are held against
+the kernel's plain PyTorch version at ``chip_smoke.py``'s tolerances, and a
+second call must give the same bits.  Every CUDA thread is a
+``std::thread``, so the shapes stay small; nothing here is a timing.
+``partial_prefill`` runs a kernel already proven on the card, as a check of
+the emulation itself.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import DTYPE_CODES
+from repro_torch.kernels import attn_importance as AI
+from repro_torch.kernels import build
+from repro_torch.kernels import partial_prefill as PP
+from repro_torch.kernels import ssd_scan as SS
+from repro_torch.models.layers import softplus
+
+HERE = Path(__file__).resolve().parent
+OUT = HERE.parents[1] / "build" / "cuda_emu"
+TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+
+# emulated bodies of the kernels' inline-PTX helpers (attn_common.cuh's
+# cp.async helpers, partial_prefill.cu's ldmatrix and mma)
+BODIES = {
+    "smem_addr": "{ return 0u; }",
+    "cp_async16": "{ if (fill) std::memcpy(dst, src, 16);"
+                  " else std::memset(dst, 0, 16); }",
+    "cp_async4": "{ std::memcpy(dst, src, 4); }",
+    "cp_async_commit": "{}",
+    "cp_async_wait": "{}",
+    "ldsm_x4": "{ emu::ldsm(p, r0, r1, r2, r3, false); }",
+    "ldsm_x4_trans": "{ emu::ldsm(p, r0, r1, r2, r3, true); }",
+    "mma_bf16": "{ emu::mma(c, a, b0, b1); }",
+}
+
+
+def _replace_body(src: str, name: str) -> str:
+    """``src`` with helper ``name``'s body replaced, where it is defined."""
+    m = re.search(r"(__device__ __forceinline__ \w+ " + name
+                  + r"\(.*?\)\s*)\{", src, re.S)
+    if m is None:
+        return src
+    depth = 0
+    for end in range(m.end() - 1, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[end], 0)
+        if depth == 0:
+            break
+    return src[:m.start()] + m.group(1) + BODIES[name] + src[end + 1:]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Translate, compile and load kernel library ``name`` for the CPU."""
+    srcdir = OUT / "src"
+    srcdir.mkdir(parents=True, exist_ok=True)
+    for f in (build.CSRC / "attn_common.cuh", build.CSRC / f"{name}.cu"):
+        text = f.read_text()
+        for helper in BODIES:
+            text = _replace_body(text, helper)
+        text = text.replace(
+            "extern __shared__ __align__(16) unsigned char smem_raw[];",
+            "unsigned char* smem_raw = emu::smem();")
+        text = re.sub(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\(",
+                      r"emu::launch(\1, \2, ", text, flags=re.S)
+        (srcdir / f.name).write_text(text)
+    lib = OUT / f"lib{name}.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-x", "c++", f"-I{HERE}", f"-I{srcdir}", "-o", str(lib),
+                    str(srcdir / f"{name}.cu"), "-lpthread"], check=True)
+    dll = ctypes.CDLL(str(lib))
+    for fname, argtypes in build.SIGNATURES[name].items():
+        getattr(dll, fname).argtypes = argtypes
+        getattr(dll, fname).restype = ctypes.c_int
+    return dll
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _call(fn, *args) -> None:
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"{fn.__name__} returned error {err}")
+
+
+def _report(label, errs, ok):
+    print(f"{label}: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + ("  ok" if ok else "  FAIL"), flush=True)
+    return ok
+
+
+def check_attn_importance() -> bool:
+    fn = load("attn_importance").attn_importance_launch
+    ok = True
+    # (B, Tq, S, nh, nkv, hd, fill lo, fill hi, causal, idle slot 1)
+    cases = [(1, 1, 512, 2, 2, 64, 64, 288, True, False),
+             (2, 8, 256, 4, 2, 64, 32, 200, True, False),
+             (2, 1, 1000, 2, 2, 64, 100, 990, True, True),
+             (1, 16, 128, 8, 1, 128, 30, 100, True, False),
+             (1, 1, 4096, 2, 2, 32, 2000, 4000, True, False),
+             (2, 3, 512, 2, 2, 16, 0, 20, True, False),
+             (1, 20, 96, 2, 1, 32, 10, 60, False, False)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Tq, S, nh, nkv, hd, lo, hi, causal, idle in cases:
+            rng = np.random.default_rng(0)
+            qp = np.full((B, Tq), -1, np.int32)
+            kp = np.full((B, S), -1, np.int32)
+            for b in range(B):
+                n = int(rng.integers(lo, hi))
+                kp[b, :n + Tq] = np.arange(n + Tq)
+                qp[b] = n + np.arange(Tq)
+            if idle:
+                qp[1] = -1
+            g = torch.Generator().manual_seed(0)
+            q, k, v = (torch.randn(*s, generator=g).to(dtype) for s in (
+                (B, Tq, nh, hd), (B, S, nkv, hd), (B, S, nkv, hd)))
+            qpt, kpt = torch.from_numpy(qp), torch.from_numpy(kp)
+            runs = []
+            for _ in range(2):
+                out = torch.full_like(q, float("nan"))
+                imp = torch.full((B, nh, S), float("nan"))
+                _call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          qpt.data_ptr(), kpt.data_ptr(), out.data_ptr(),
+                          imp.data_ptr(), B, Tq, S, nh, nkv, hd, int(causal),
+                          DTYPE_CODES[dtype], None)
+                runs.append((out, imp))
+            (out, imp), (out2, imp2) = runs
+            o_ref, i_ref = AI.attn_with_importance_ref(q, k, v, qpt, kpt,
+                                                       causal=causal)
+            tol = TOL[dtype]
+            e_o = float((out.float() - o_ref.float()).abs().max())
+            e_i = float((imp - i_ref).abs().max())
+            good = (e_o <= tol + tol * float(o_ref.float().abs().max())
+                    and e_i <= 1e-3 and bool((imp[i_ref == 0] == 0).all())
+                    and torch.equal(out, out2) and torch.equal(imp, imp2))
+            ok &= _report(f"attn_importance {B, Tq, S, nh, nkv, hd} "
+                          f"causal={causal} idle={idle} {dtype}",
+                          {"out": e_o, "imp": e_i}, good)
+    return ok
+
+
+def check_ssd_scan() -> bool:
+    fn = load("ssd_scan").ssd_scan_launch
+    ok = True
+    # (B, L, H, P, N, chunk, h0, dt shift: 4 makes the state carry far)
+    cases = [(1, 64, 2, 16, 16, 32, True, 0.0), (2, 50, 2, 32, 16, 16, False, 0.0),
+             (1, 70, 3, 8, 8, 32, True, 0.0), (1, 300, 1, 64, 128, 256, True, 0.0),
+             (1, 96, 2, 64, 64, 48, False, 0.0), (1, 40, 2, 12, 20, 40, True, 0.0),
+             (1, 512, 1, 64, 128, 256, True, 4.0)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, L, H, P, N, chunk, use_h0, shift in cases:
+            g = torch.Generator().manual_seed(3)
+
+            def r(*s):
+                return torch.randn(*s, generator=g)
+
+            x = (r(B, L, H, P) * 0.5).to(dtype)
+            dt = softplus(r(B, L, H) - shift)
+            A = -torch.exp(r(H) * 0.3)
+            Bm, Cm = (r(B, L, N) * 0.5).to(dtype), (r(B, L, N) * 0.5).to(dtype)
+            h0 = r(B, H, P, N) * 0.2 if use_h0 else None
+            Q = min(chunk, L)
+            nc, Qp = -(-L // Q), -(-Q // 16) * 16
+            runs = []
+            for _ in range(2):
+                y = torch.full_like(x, float("nan"))
+                h = torch.full((B, H, P, N), float("nan"))
+                cb = torch.full((B, nc, Qp, Qp), float("nan"))
+                dac = torch.full((2, B, nc, Qp, H), float("nan"))
+                st = torch.full((B, nc, H, P, N), float("nan"))
+                _call(fn, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                          Bm.data_ptr(), Cm.data_ptr(), _ptr(h0), y.data_ptr(),
+                          h.data_ptr(), cb.data_ptr(), dac[0].data_ptr(),
+                          dac[1].data_ptr(), st.data_ptr(), B, L, H, P, N, Q,
+                          DTYPE_CODES[dtype], None)
+                runs.append((y, h))
+            (y, h), (y2, h2) = runs
+            # the passes' plain versions scan dAc in f32 as the kernel does
+            y_ref, h_ref = SS.ssd_scan_passes(x, dt, A, Bm, Cm, chunk=chunk,
+                                              h0=h0)
+            tol = TOL[dtype]
+            e_y = float((y.float() - y_ref.float()).abs().max())
+            e_h = float((h - h_ref).abs().max())
+            good = (e_y <= tol + tol * float(y_ref.float().abs().max())
+                    and e_h <= 10 * tol and bool(torch.isfinite(y.float()).all())
+                    and torch.equal(y, y2) and torch.equal(h, h2))
+            ok &= _report(f"ssd_scan {B, L, H, P, N} chunk={chunk} h0={use_h0}"
+                          f" dt shift {shift} {dtype}", {"y": e_y, "h": e_h},
+                          good)
+    return ok
+
+
+def check_partial_prefill() -> bool:
+    fn = load("partial_prefill").partial_prefill_launch
+    B, C, S, nh, nkv, hd = 2, 16, 128, 4, 2, 64
+    qp = np.full((B, C), -1, np.int32)
+    kp = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        n = 40 + 20 * b
+        kp[b, :n + C] = np.arange(n + C)
+        qp[b] = n + np.arange(C)
+    qpt, kpt = torch.from_numpy(qp), torch.from_numpy(kp)
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator().manual_seed(0)
+        q, k, v = (torch.randn(*s, generator=g).to(dtype) for s in (
+            (B, C, nh, hd), (B, S, nkv, hd), (B, S, nkv, hd)))
+        out = torch.full_like(q, float("nan"))
+        _call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), qpt.data_ptr(),
+                  kpt.data_ptr(), out.data_ptr(), None, None, None, B, C, S,
+                  nh, nkv, hd, 1, 0, DTYPE_CODES[dtype], None)
+        ref = PP.partial_prefill_ref(q, k, v, qpt, kpt)
+        e = float((out.float() - ref.float()).abs().max())
+        ok &= _report(f"partial_prefill {B, C, S, nh, nkv, hd} {dtype}",
+                      {"out": e}, e <= TOL[dtype])
+    return ok
+
+
+CHECKS = {"attn_importance": check_attn_importance,
+          "ssd_scan": check_ssd_scan,
+          "partial_prefill": check_partial_prefill}
+
+if __name__ == "__main__":
+    torch.set_num_threads(1)
+    names = sys.argv[1:] or list(CHECKS)
+    results = [CHECKS[n]() for n in names]
+    sys.exit(0 if all(results) else 1)
