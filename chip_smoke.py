@@ -33,6 +33,16 @@ with the one-shot prefill, and the same prefill on the plain SSD path
 (cosine >= 0.999); it checks that ``ssd_scan`` ran 64 times per
 multi-token forward and that the reduced mamba2 in float32 gives
 identical greedy streams through the kernel and the plain path.
+Phase 7 runs between phases 5 and 6, while the full-width pair is still
+loaded: a fleet of two paged replicas that share prefixes serves six
+prompts (three behind one 128-token system prompt) under prefix-affinity
+and round-robin, then with replica 1 killed mid-verify, and one replica
+at queue cap 1 degrades streams to the device; every cloud-verified
+stream must equal a one-replica oracle, and the paged prefill kernel
+must run on both replicas.  It then calls the serve launcher in-process
+on the tiny pair (one replica and two: one ``outputs_sha``) and streams
+one chat completion through the HTTP gateway over a two-replica router
+(the batch run's tokens).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -1108,6 +1118,309 @@ def phase_paged_full_width(state):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the fleet router and the serve launcher (runs after phase 5)
+# ---------------------------------------------------------------------------
+
+FLEET_SYSTEM_TOKENS = 128        # the shared system prompt: 8 full blocks
+FLEET_MAX_NEW = 16
+
+
+def fleet_prompts(vocab: int) -> list[list[int]]:
+    """Six prompts: three behind one 128-token system prompt (suffixes of
+    64, 128 and 192 tokens), three without (64, 128, 256).  At
+    concurrency 4 the first shared prompt opens with the three plain
+    ones; the device feeds a prompt at a modeled 30 ms a token before
+    the cloud sees it, so the shortest plain stream ends after the
+    shared one's prefill and before that stream ends: the two shared
+    prompts opened next find its blocks live (prefix-affinity)."""
+    rng = np.random.default_rng(0)
+    system = rng.integers(1, vocab, FLEET_SYSTEM_TOKENS).tolist()
+    shared = {n: system + rng.integers(1, vocab, n).tolist()
+              for n in (64, 128, 192)}
+    plain = {n: rng.integers(1, vocab, n).tolist() for n in (64, 128, 256)}
+    return [shared[64], plain[64], plain[128], plain[256], shared[128],
+            shared[192]]
+
+
+class ReplicaLaunches:
+    """Paged partial-prefill launches made inside each replica engine's
+    ``feed`` / ``prefill`` (the counter is global; serving is one
+    thread, so the difference across a call is that replica's)."""
+
+    def __init__(self, engines):
+        from repro_torch.kernels import partial_prefill
+        self.mod = partial_prefill
+        self.counts = [0] * len(engines)
+        self._undo = []
+        for i, eng in enumerate(engines):
+            for name in ("feed", "prefill"):
+                self._wrap(eng, name, i)
+
+    def _wrap(self, eng, name, i):
+        fn = getattr(eng, name)
+
+        def counted(*a, **k):
+            before = self.mod.paged_launches
+            try:
+                return fn(*a, **k)
+            finally:
+                self.counts[i] += self.mod.paged_launches - before
+
+        setattr(eng, name, counted)
+        self._undo.append((eng, name))
+
+    def restore(self):
+        for eng, name in self._undo:
+            delattr(eng, name)          # the class's method again
+        self._undo.clear()
+
+
+def _fleet_engine(state, **kw):
+    from repro_torch.serving.engine import CloudEngine
+    return CloudEngine(state["llm_cfg"], state["llm_p"], max_slots=4,
+                       s_max=512, cache_impl="paged", block_size=16,
+                       share_prefix=True, device=state["device"], **kw)
+
+
+def _tokens_per_s(outputs, wall):
+    n = sum(len(o) for o in outputs)
+    return n, n / wall
+
+
+def fleet_gateway_check(device, prompt, max_new):
+    """One streamed chat completion over a socket, through a ``Gateway``
+    over a two-replica router of the tiny pair; returns its tokens and
+    the batch run's (``run_synera``) for the same prompt."""
+    import socket
+    from repro_torch.configs.synera_pair import tiny_pair
+    from repro_torch.core.offload import OffloadPolicy
+    from repro_torch.models import model as M
+    from repro_torch.serving.device import DeviceRuntime
+    from repro_torch.serving.engine import CloudEngine
+    from repro_torch.serving.gateway import Gateway, GatewayConfig
+    from repro_torch.serving.gateway import protocol as P
+    from repro_torch.serving.link import RealClock
+    from repro_torch.serving.router import ReplicaRouter
+    from repro_torch.serving.server import build_fleet
+    from repro_torch.serving import synergy as SY
+
+    slm_cfg, llm_cfg = (c.replace(attn_impl="pallas")
+                        for c in tiny_pair(vocab=64))
+    slm_p = M.init_params(slm_cfg, seed=0, device=device)
+    llm_p = M.init_params(llm_cfg, seed=1, device=device)
+
+    def engines(n):
+        return [CloudEngine(llm_cfg, llm_p, max_slots=2, s_max=256,
+                            cache_impl="paged", block_size=16,
+                            share_prefix=True, device=device)
+                for _ in range(n)]
+
+    dev = DeviceRuntime(slm_cfg, slm_p, s_max=256, gamma=4,
+                        policy=OffloadPolicy(mode="all"), device=device)
+    batch = [int(t) for t in SY.run_synera(dev, engines(1)[0], [prompt],
+                                           max_new).outputs[0]]
+    router = ReplicaRouter(build_fleet(dev, engines(2), clock=RealClock(),
+                                       clamp_arrivals=True),
+                           policy="prefix-affinity")
+    gw = Gateway(router, GatewayConfig(port=0, max_active=2,
+                                       queue_cap=2)).start()
+    body = json.dumps({"model": "synera-tiny", "stream": True,
+                       "max_tokens": max_new,
+                       "messages": [{"role": "user",
+                                     "content": P.detok(prompt)}]}).encode()
+    data = b""
+    try:
+        with socket.create_connection(("127.0.0.1", gw.port),
+                                      timeout=60) as sock:
+            sock.sendall(b"POST /v1/chat/completions HTTP/1.1\r\n"
+                         b"Host: localhost\r\nConnection: close\r\n"
+                         b"Content-Type: application/json\r\n"
+                         + f"Content-Length: {len(body)}\r\n\r\n".encode()
+                         + body)
+            while chunk := sock.recv(65536):
+                data += chunk
+    finally:
+        gw.close()
+    if any(t.is_alive() for t in gw._threads):
+        raise RuntimeError("gateway threads outlived close()")
+    head, _, sse = data.partition(b"\r\n\r\n")
+    frames = [f[len(b"data: "):] for f in sse.split(b"\n\n")
+              if f.startswith(b"data: ")]
+    if not head.startswith(b"HTTP/1.1 200") or frames[-1:] != [b"[DONE]"]:
+        raise RuntimeError(f"gateway answered {head[:40]!r}, "
+                           f"{len(frames)} frames")
+    text = "".join(json.loads(f)["choices"][0]["delta"].get("content", "")
+                   for f in frames[:-1])
+    return P.parse_tokens(text), batch
+
+
+def phase_fleet(state):
+    """The fleet at full width (phase 3's bf16 160M/7B pair, paged
+    replicas that share prefixes without retention, pools that never
+    preempt): a one-engine oracle, two replicas under prefix-affinity and
+    round-robin, a replica killed mid-verify, a saturated replica that
+    degrades to the device; then the serve launcher and the HTTP gateway
+    on the tiny pair."""
+    import torch
+    from repro_torch.core.offload import OffloadPolicy
+    from repro_torch.launch import serve
+    from repro_torch.serving import synergy as SY
+    from repro_torch.serving.device import DeviceRuntime
+    from repro_torch.serving.router import ReplicaRouter
+    from repro_torch.serving.server import WAIT_CLOUD, build_fleet
+
+    dev_type = state["device"]
+    gc.collect()                    # phases 3 and 5 left no engine behind
+    if dev_type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"[fleet] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated before the replicas (the pair's weights)")
+    prompts = fleet_prompts(state["slm_cfg"].vocab)
+    max_new = FLEET_MAX_NEW
+    dev = DeviceRuntime(state["slm_cfg"], state["slm_p"], s_max=512,
+                        gamma=4, policy=OffloadPolicy(mode="all"),
+                        device=dev_type)
+    checks = {}
+
+    def timed(fn):
+        _sync(dev_type)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev_type)
+        return out, time.perf_counter() - t0
+
+    oracle, wall = timed(lambda: SY.run_synera(
+        dev, _fleet_engine(state), prompts, max_new, concurrency=4))
+    want = outputs_sha(oracle.outputs)
+    n, tps = _tokens_per_s(oracle.outputs, wall)
+    log(f"[fleet] oracle (one replica): {n} tokens in {wall:.2f} s wall "
+        f"({tps:.1f} tokens/s); sha {want}")
+    for o in oracle.outputs:
+        if len(o) != max_new or not all(0 <= t < state["llm_cfg"].vocab
+                                        for t in o):
+            raise RuntimeError(f"bad fleet oracle output {o}")
+
+    engines = [_fleet_engine(state), _fleet_engine(state)]
+    for policy in ("prefix-affinity", "round-robin"):
+        per_replica = ReplicaLaunches(engines)
+        res, wall = timed(lambda: SY.run_synera_fleet(
+            dev, engines, prompts, max_new, policy=policy, concurrency=4))
+        per_replica.restore()
+        st, reps = res.extras["scheduler"], res.extras["replicas"]
+        n, tps = _tokens_per_s(res.outputs, wall)
+        log(f"[fleet] {policy}, 2 replicas: {n} tokens in {wall:.2f} s wall "
+            f"({tps:.1f} tokens/s); sha {outputs_sha(res.outputs)}; "
+            f"affinity_hits {st['affinity_hits']}; per replica: " +
+            json.dumps([{k: r[k] for k in ("completed_streams", "iterations",
+                                           "peak_used_blocks", "n_blocks",
+                                           "dedupe_hit_blocks")}
+                        for r in reps]) +
+            f"; paged prefill launches per replica {per_replica.counts}")
+        checks[f"{policy}: streams equal the oracle"] = \
+            outputs_sha(res.outputs) == want
+        checks[f"{policy}: both replicas served sessions"] = all(
+            r["completed_streams"] > 0 for r in reps)
+        checks[f"{policy}: paged prefill kernel on both replicas"] = all(
+            c > 0 for c in per_replica.counts)
+        if policy == "prefix-affinity":
+            checks["affinity_hits >= 1"] = st["affinity_hits"] >= 1
+    del engines
+
+    router = ReplicaRouter(build_fleet(dev, [_fleet_engine(state),
+                                             _fleet_engine(state)]),
+                           policy="round-robin")
+
+    def kill_run():
+        sess = [router.open_session(p, max_new) for p in prompts]
+        for _ in range(2000):
+            router.step()
+            if any(s.state == WAIT_CLOUD
+                   for s in router.replicas[1].sessions if not s.done):
+                break
+        else:
+            raise RuntimeError("replica 1 never held a session in WAIT_CLOUD")
+        moved = router.kill_replica(1)
+        while router.step():
+            pass
+        return [s.metrics.tokens for s in sess], moved
+
+    (outs, moved), wall = timed(kill_run)
+    st = router.stats()
+    n, tps = _tokens_per_s(outs, wall)
+    log(f"[fleet] kill replica 1 mid-verify: {moved} sessions moved; {n} "
+        f"tokens in {wall:.2f} s wall ({tps:.1f} tokens/s); sha "
+        f"{outputs_sha(outs)}; rerouted_sessions {st['rerouted_sessions']}, "
+        f"dead_replicas {st['dead_replicas']}")
+    checks["kill: streams equal the oracle"] = outputs_sha(outs) == want
+    checks["rerouted_sessions >= 1"] = st["rerouted_sessions"] >= 1
+    checks["dead_replicas == 1"] = st["dead_replicas"] == 1
+    del router
+
+    router = ReplicaRouter(build_fleet(dev, [_fleet_engine(state)]),
+                           policy="least-loaded", replica_queue_cap=1)
+    metrics, wall = timed(lambda: router.serve(prompts[:3], max_new,
+                                               concurrency=2))
+    st = router.stats()
+    degraded = [m for s, m in zip(router.sessions, metrics)
+                if router.owner[id(s)] == -1]
+    served = [(i, m) for i, (s, m) in enumerate(zip(router.sessions,
+                                                    metrics))
+              if router.owner[id(s)] == 0]
+    n, tps = _tokens_per_s([m.tokens for m in metrics], wall)
+    log(f"[fleet] saturation (queue cap 1, one replica): {n} tokens in "
+        f"{wall:.2f} s wall ({tps:.1f} tokens/s); degraded_streams "
+        f"{st['degraded_streams']}; degraded cloud tokens "
+        f"{[m.n_cloud_tokens for m in degraded]}")
+    checks["degraded_streams >= 1"] = st["degraded_streams"] >= 1
+    checks["degraded streams: max_new tokens, no cloud tokens"] = all(
+        len(m.tokens) == max_new and m.n_cloud_tokens == 0
+        for m in degraded)
+    checks["saturation: served streams equal the oracle"] = all(
+        [int(t) for t in m.tokens] == [int(t) for t in oracle.outputs[i]]
+        for i, m in served)
+    del router, dev
+    if dev_type == "cuda":
+        log(f"[fleet] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB; {torch.cuda.memory_allocated() / 2**30:.2f} GiB now")
+
+    # --budget 1.0: the random SLM's profiled thresholds offload nothing
+    # at the default 0.2, and the launcher's fleet would not verify
+    argv = [
+        "--random-weights", "--budget", "1.0", "--attn-impl", "pallas",
+        "--cache-impl", "paged", "--share-prefix",
+        "--shared-prefix-tokens", "32", "--requests", "4",
+        "--max-new", "16", "--json", "--device", dev_type]
+    sums = {}
+    for reps in (["--replicas", "1"],
+                 ["--replicas", "2", "--route-policy", "prefix-affinity"]):
+        t0 = time.perf_counter()
+        sums[reps[1]] = serve.main(argv + reps)
+        log(f"[fleet] launcher {' '.join(reps)}: "
+            f"{time.perf_counter() - t0:.2f} s; sha "
+            f"{sums[reps[1]]['outputs_sha']}, iterations "
+            f"{sums[reps[1]]['iterations']}")
+    checks["launcher: 1 and 2 replicas give one sha"] = \
+        sums["1"]["outputs_sha"] == sums["2"]["outputs_sha"]
+    checks["launcher: the cloud verified"] = all(
+        s["iterations"] > 0 for s in sums.values())
+
+    t0 = time.perf_counter()
+    streamed, batch = fleet_gateway_check(dev_type, list(range(3, 19)), 12)
+    log(f"[fleet] gateway: streamed {streamed} in "
+        f"{time.perf_counter() - t0:.2f} s (batch run {batch})")
+    checks["gateway: streamed tokens equal the batch run's"] = \
+        streamed == batch and len(batch) == 12
+
+    failed = [k for k, v in checks.items() if not v]
+    log("[fleet] checks: " + json.dumps(checks))
+    if failed:
+        raise RuntimeError(f"fleet phase failed: {failed}")
+    if dev_type == "cuda":
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the Mamba2 (SSM) family at full width
 # ---------------------------------------------------------------------------
 
@@ -1365,6 +1678,7 @@ def main() -> int:
                       (3, lambda: phase_full_width(state)),
                       (4, phase_tiny_identity),
                       (5, lambda: phase_paged_full_width(state)),
+                      (7, lambda: phase_fleet(state)),
                       (6, ssm)):
             t0 = time.perf_counter()
             signal.alarm(PHASE_LIMIT_S)

@@ -24,6 +24,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -172,6 +173,30 @@ def fused_row_from_logits(logits_row: np.ndarray, target: int, top_k: int):
     order = part[np.argsort(-probs[part], kind="stable")].astype(np.int32)
     p_t = float(probs[target]) if target is not None and target >= 0 else 0.0
     return (int(np.argmax(lf)), p_t, order, probs[order].astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Batched tensor variant (the reference's ``jnp`` version, in torch).
+# ---------------------------------------------------------------------------
+
+def verify_greedy_batched(draft: torch.Tensor, p_logits: torch.Tensor):
+    """draft: (B, gamma); p_logits: (B, gamma+1, V).
+
+    Returns (n_accepted (B,), corrected (B,), bonus (B,)) where
+    ``corrected`` is the replacement at the rejection position (valid when
+    n_accepted < gamma) and ``bonus`` the extra token (valid otherwise).
+    Ties in the argmax resolve to the first index, as in ``jnp.argmax``.
+    """
+    gamma = draft.shape[1]
+    tops = torch.argmax(p_logits, dim=-1)           # (B, gamma+1)
+    match = tops[:, :gamma] == draft                # (B, gamma)
+    # first mismatch position (gamma if none)
+    n_acc = torch.where(match.all(dim=1), gamma,
+                        torch.argmin(match.to(torch.int32), dim=1))
+    corrected = torch.gather(
+        tops, 1, torch.clamp(n_acc, max=gamma - 1)[:, None])[:, 0]
+    bonus = tops[:, gamma]
+    return n_acc, corrected, bonus
 
 
 def expected_accepted(alpha: float, gamma: int) -> float:

@@ -1,6 +1,6 @@
 """Multi-tenant serving front-end: ``SyneraServer`` + ``DeviceSession``
-(port of ``repro/serving/server.py``; the fleet helpers and the
-router-facing session migration wait for the router's slice).
+(port of ``repro/serving/server.py``; the fleet composition and the
+replica-death session migration serve ``serving/router.py``).
 
 This is the non-blocking redesign of the serving layer (ROADMAP: scale
 items).  The server owns the shared cloud side — ``CloudEngine``,
@@ -46,17 +46,27 @@ from dataclasses import asdict, dataclass, field
 
 import numpy as np
 
-from repro_torch.serving.device import CloudReply, DeviceRuntime
+from repro_torch.serving.device import CloudCall, CloudReply, DeviceRuntime
 from repro_torch.serving.engine import CloudEngine
 from repro_torch.serving.link import CloudLatencyModel, SimClock
 from repro_torch.serving.scheduler import VerificationAwareScheduler
 from repro_torch.serving.synergy import CloudClient
-from repro_torch.serving.trace import NULL_TRACER, hist_from, hist_new
+from repro_torch.serving.trace import (NULL_TRACER, hist_from, hist_merge,
+                                      hist_new)
 
 RUNNING = "running"
 WAIT_SLOT = "wait_slot"    # verify ready but prompt prefill not yet done
 WAIT_CLOUD = "wait_cloud"  # verify in flight
 DONE = "done"
+
+
+@dataclass
+class _SparseDist:
+    """Compressed-dist shape ``CloudClient.verify_async`` consumes
+    (``d.idx`` / ``d.val``) — used to rebuild a parked verify's dists
+    from a scheduler ``VerifyRequest.q_sparse`` on session export."""
+    idx: object
+    val: object
 
 
 @dataclass
@@ -379,6 +389,74 @@ class SyneraServer:
         s.client.release()
         return True
 
+    # -- replica-death session migration (serving/router.py) -----------
+    def export_session(self, s: DeviceSession):
+        """Detach a live session from this (dying) server so the router
+        can re-place it on a survivor.  Returns the session's pending
+        verify work as a ``CloudCall`` (None for a session that never
+        parked on the cloud — e.g. still fresh).
+
+        Unlike :meth:`cancel` nothing is released: a dead replica's pool
+        dies with it (``mark_dead`` poisons any further dispatch, and a
+        release would be one), and the generation coroutine must stay
+        resumable — all device-side state lives in its frame, so the
+        stream continues byte-identically once the survivor re-prefills
+        its accepted ``seq`` and re-runs the parked verify on top."""
+        assert not s.done, "only live sessions are exported"
+        rids = {rid for rid, (sess, _) in self._by_req.items() if sess is s}
+        pending = None
+        if s.pending_call is not None:          # WAIT_SLOT: not yet submitted
+            pending, s.pending_call = s.pending_call, None
+        else:                                   # WAIT_CLOUD: in the scheduler
+            for r in self.sched.export_requests(rids):
+                dists = [_SparseDist(idx, val)
+                         for idx, val in (r.q_sparse or [])]
+                pending = CloudCall("verify", send_ms=0.0, uplink_ms=0.0,
+                                    seq=[int(t) for t in r.seq],
+                                    draft=[int(t) for t in r.draft],
+                                    dists=dists)
+        for rid in rids:
+            self._by_req.pop(rid, None)
+        self.sched.cancel_requests(rids)        # drops any queued prefill
+        try:
+            self._fresh.remove(s)
+        except ValueError:
+            pass
+        self.sessions.remove(s)
+        s.prefill_rid = None
+        s.client = None
+        return pending
+
+    def import_session(self, s: DeviceSession, pending) -> None:
+        """Adopt a session exported from a dead replica.  ``pending`` is
+        the ``CloudCall`` :meth:`export_session` returned: its ``seq``
+        (the full accepted stream) is re-prefilled from scratch — the
+        recompute-eviction restart contract — and the verify is parked
+        as the session's pending call, exactly the WAIT_SLOT shape the
+        event loop already handles.  When the prefill lands, the verify
+        feeds ``seq[frontier:]`` (empty — the prefill covered it) plus
+        the draft, and the prefill's retained last row supplies the
+        missing verification row; token identity is untouched because
+        the re-prefilled KV is position-for-position what incremental
+        feeds would have written."""
+        s.sid = len(self.sessions)
+        self.sessions.append(s)
+        s.client = CloudClient(self.sched, sampling=self.sampling, slo=s.slo)
+        if pending is None:
+            # never reached the cloud: run it like a freshly opened session
+            s.state = RUNNING
+            self._fresh.append(s)
+            return
+        now = self.clock.now_ms
+        rid = s.client.prefill_async(list(pending.seq), arrival_ms=now)
+        s.prefill_rid = rid
+        self._by_req[rid] = (s, "prefill")
+        # re-anchor the parked call's arrival at "now" on the shared clock
+        pending.send_ms = max(0.0, now - s.start_ms)
+        pending.uplink_ms = 0.0
+        s.pending_call = pending
+        s.state = WAIT_SLOT
+
     # ------------------------------------------------------------------
     def step(self) -> bool:
         """One event-loop step: drain runnable sessions, then execute one
@@ -584,3 +662,84 @@ class SyneraServer:
     def stats(self) -> dict:
         """Dict view of :meth:`server_stats` (the stable extras schema)."""
         return self.server_stats().as_dict()
+
+
+# ---------------------------------------------------------------------------
+# Fleet composition (serving/router.py)
+# ---------------------------------------------------------------------------
+
+def build_fleet(device: DeviceRuntime, engines, *, chunk: int = 32,
+                sampling: str = "greedy",
+                latency: CloudLatencyModel | None = None,
+                clock: SimClock | None = None,
+                preempt_policy: str | None = None,
+                clamp_arrivals: bool = False,
+                tracer=None) -> list[SyneraServer]:
+    """Compose one ``SyneraServer`` per engine on a single shared clock.
+
+    Each replica is fully independent on the cloud side — its own block
+    pool, prefix index and swap tier — but the fleet shares one time
+    axis (cross-replica latency numbers must be comparable and a
+    session re-placed after a replica death keeps its anchor) and one
+    ``DeviceRuntime``: all device-side session state lives in each
+    generation coroutine's frame, so a single set of device weights
+    backs every stream regardless of which replica verifies it."""
+    clock = clock or SimClock()
+    return [SyneraServer(device, eng, chunk=chunk, sampling=sampling,
+                         latency=latency, clock=clock,
+                         preempt_policy=preempt_policy,
+                         clamp_arrivals=clamp_arrivals,
+                         tracer=tracer, replica=i)
+            for i, eng in enumerate(engines)]
+
+
+# how per-replica ServerStats fields combine into one fleet view: maxed
+# (shared clock / peak concurrency / layout constants), or'd (feature
+# flags), or taken from replica 0 (homogeneous config strings); every
+# other numeric field is a counter or gauge and sums
+_AGG_MAX = {"sim_ms", "modeled_ms", "max_verify_occupancy", "block_size"}
+_AGG_OR = {"swap", "share_prefix", "retain_prefix", "trace"}
+_AGG_FIRST = {"clock", "preempt_policy", "route_policy"}
+
+
+def aggregate_server_stats(per_replica: list[ServerStats], *,
+                           ttfts=None, e2es=None) -> ServerStats:
+    """Fold per-replica :class:`ServerStats` into one fleet-wide view.
+
+    Counters and gauges sum (a fleet's pool is the union of its pools);
+    occupancy means re-weight by each replica's verify iterations; the
+    latency percentiles are recomputed from the pooled per-stream
+    samples the caller passes in (``ttfts`` / ``e2es``) — percentiles
+    of percentiles would be meaningless."""
+    dicts = [s.as_dict() for s in per_replica]
+    wsum = sum(d["verify_iterations"] for d in dicts) or 1
+    out = {}
+    for k in dicts[0]:
+        vals = [d[k] for d in dicts]
+        if k in ("mean_verify_occupancy", "mean_packed_tokens"):
+            out[k] = sum(v * d["verify_iterations"]
+                         for v, d in zip(vals, dicts)) / wsum
+        elif k == "cache_impl":
+            out[k] = ("paged" if any(v == "paged" for v in vals)
+                      else vals[0])
+        elif k in _AGG_FIRST:
+            out[k] = vals[0]
+        elif k in _AGG_OR:
+            out[k] = any(vals)
+        elif k in _AGG_MAX:
+            out[k] = max(vals)
+        elif k.startswith("hist_"):
+            out[k] = hist_merge(vals)  # cumulative counts fold elementwise
+        elif k.startswith("ttft_") or k.startswith("e2e_"):
+            out[k] = 0.0
+        else:
+            out[k] = sum(vals)
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) if xs else 0.0
+
+    for name, xs in (("ttft", list(ttfts or [])), ("e2e", list(e2es or []))):
+        out[f"{name}_ms_mean"] = float(np.mean(xs)) if xs else 0.0
+        out[f"{name}_ms_p50"] = pct(xs, 50)
+        out[f"{name}_ms_p95"] = pct(xs, 95)
+    return ServerStats(**out)

@@ -1,7 +1,7 @@
 """End-to-end device-cloud orchestration (Fig 8) and the paper's four
 baselines (§6.1): Edge-centric, Cloud-centric, Hybrid [9], EdgeFM-LLM
-(port of ``repro/serving/synergy.py``; the multi-replica
-``run_synera_fleet`` waits for the router's slice).
+(port of ``repro/serving/synergy.py``; ``run_synera_fleet`` serves
+across replicas behind ``serving/router.py``).
 
 ``CloudClient`` is one device stream's handle on the cloud runtime.  It
 exposes non-blocking submission (``prefill_async`` / ``verify_async``)
@@ -197,6 +197,57 @@ def run_synera(device: DeviceRuntime, engine: CloudEngine,
         res.outputs.append(m.tokens)
         res.metrics.append(m)
     res.extras["scheduler"] = server.stats()
+    if tracer is not None:
+        res.extras["tracer"] = tracer
+    return res.summarize(cost_model or CostModel())
+
+
+def run_synera_fleet(device: DeviceRuntime, engines: list[CloudEngine],
+                     prompts: list[list[int]], max_new: int, *,
+                     policy: str = "least-loaded",
+                     replica_queue_cap: int = 0,
+                     sampling: str = "greedy",
+                     cost_model: CostModel | None = None,
+                     chunk: int = 32,
+                     concurrency: int | None = 1,
+                     arrivals: list[float] | None = None,
+                     latency: CloudLatencyModel | None = None,
+                     preempt_policy: str | None = None,
+                     slos: list | None = None,
+                     trace: bool = False) -> RunResult:
+    """Serve ``prompts`` across a fleet of cloud replicas behind a
+    ``ReplicaRouter`` (serving/router.py).
+
+    One ``SyneraServer`` per engine, all on one shared clock and one
+    device runtime; each admission is placed by ``policy`` (round-robin
+    / least-loaded / prefix-affinity).  Placement must never change
+    content: greedy token streams are byte-identical to the
+    single-engine ``run_synera`` run regardless of policy or replica
+    count.  ``replica_queue_cap`` bounds live sessions per replica —
+    when every replica is past it, new streams degrade to device-only
+    generation instead of being rejected.  ``extras['scheduler']`` is
+    the fleet-aggregated stats dict; ``extras['replicas']`` the
+    per-replica views."""
+    from repro_torch.serving.link import SimClock
+    from repro_torch.serving.router import ReplicaRouter
+    from repro_torch.serving.server import build_fleet
+    from repro_torch.serving.trace import Tracer
+    clock = SimClock()
+    tracer = Tracer(clock) if trace else None
+    servers = build_fleet(device, engines, chunk=chunk, sampling=sampling,
+                          latency=latency, preempt_policy=preempt_policy,
+                          clock=clock, tracer=tracer)
+    router = ReplicaRouter(servers, policy=policy,
+                           replica_queue_cap=replica_queue_cap)
+    metrics = router.serve(prompts, max_new, concurrency=concurrency,
+                           arrivals=arrivals, slos=slos)
+    res = RunResult()
+    for m in metrics:
+        res.outputs.append(m.tokens)
+        res.metrics.append(m)
+    res.extras["scheduler"] = router.stats()
+    res.extras["replicas"] = [router.replica_stats(i)
+                              for i in range(router.n_replicas)]
     if tracer is not None:
         res.extras["tracer"] = tracer
     return res.summarize(cost_model or CostModel())
