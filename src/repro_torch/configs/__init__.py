@@ -1,7 +1,9 @@
 """Config registry: importing this package registers the paper's own
-SLM/LLM pair (dense family) and ``mamba2-2.7b`` (ssm family).  The other
-architecture configs of the reference wait for the slices that port
-their families."""
+SLM/LLM pair and the reference's dense configs (``glm4-9b``,
+``llama3.2-1b``, ``qwen2-1.5b``, ``qwen1.5-110b``), ``mamba2-2.7b`` (ssm
+family) and ``zamba2-2.7b`` (hybrid family), each a copy of the
+reference's file.  The moe, vlm and audio configs wait for the slices
+that port their families."""
 from repro_torch.configs.base import (  # noqa: F401
     INPUT_SHAPES,
     InputShape,
@@ -12,4 +14,9 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 from repro_torch.configs.synera_pair import (  # noqa: F401
     SYNERA_LLM, SYNERA_SLM, tiny_pair)
+from repro_torch.configs.glm4_9b import GLM4_9B  # noqa: F401
+from repro_torch.configs.llama3_2_1b import LLAMA32_1B  # noqa: F401
+from repro_torch.configs.qwen2_1_5b import QWEN2_1_5B  # noqa: F401
+from repro_torch.configs.qwen1_5_110b import QWEN15_110B  # noqa: F401
 from repro_torch.configs.mamba2_2_7b import MAMBA2_2_7B  # noqa: F401
+from repro_torch.configs.zamba2_2_7b import ZAMBA2_2_7B  # noqa: F401

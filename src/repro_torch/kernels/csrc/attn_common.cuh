@@ -1,7 +1,9 @@
 // Shared helpers for the hand-written Hopper attention kernels.
 //
 // Every kernel is templated over the element type (float or
-// __nv_bfloat16) and the head dim (16, 32, 64 or 128); softmax state and
+// __nv_bfloat16) and the head dim (16, 32, 64, 80 or 128; 80 is zamba2's
+// shared attention block, 2560 / 32): a multiple of 16, so a row is whole
+// 16-byte copies and whole 16-wide mma k-steps.  Softmax state and
 // accumulators are f32.  The masking constant and the l == 0 -> 1 guard follow
 // the reference kernels exactly, so a fully masked query row comes out
 // as 0, never NaN.
@@ -97,6 +99,10 @@ struct RingPitch {
     } break;                                       \
     case 64: {                                     \
       constexpr int HD = 64;                       \
+      __VA_ARGS__;                                 \
+    } break;                                       \
+    case 80: {                                     \
+      constexpr int HD = 80;                       \
       __VA_ARGS__;                                 \
     } break;                                       \
     case 128: {                                    \

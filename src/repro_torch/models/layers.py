@@ -628,15 +628,16 @@ def mamba_block(p, cfg, x, cache=None, *, return_importance=False):
     return out, cache, imp
 
 
-def init_mamba_cache(cfg, batch, dtype, *, layers: int, device):
-    """Per-layer conv windows and SSM states, stacked over ``layers``:
-    {"conv": (layers, batch, W-1, C) dtype, "state": (layers, batch, H,
-    P, N) f32}, zeros."""
+def init_mamba_cache(cfg, batch, dtype, *, layers: tuple, device):
+    """Per-layer conv windows and SSM states, stacked over the leading
+    axes ``layers`` ((n,) for a layer stack, (rounds, per round) for the
+    hybrid): {"conv": (*layers, batch, W-1, C) dtype, "state": (*layers,
+    batch, H, P, N) f32}, zeros."""
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     convC = di + 2 * N
     return {
-        "conv": torch.zeros((layers, batch, cfg.ssm_conv_width - 1, convC),
+        "conv": torch.zeros((*layers, batch, cfg.ssm_conv_width - 1, convC),
                             dtype=dtype, device=device),
-        "state": torch.zeros((layers, batch, H, P, N), dtype=torch.float32,
+        "state": torch.zeros((*layers, batch, H, P, N), dtype=torch.float32,
                              device=device),
     }

@@ -1,19 +1,22 @@
-"""Model assembly for the dense and ssm families (port of
+"""Model assembly for the dense, ssm and hybrid families (port of
 ``repro/models/model.py``).
 
 Parameters are nested dicts of tensors with the reference's structure and
-names; every per-layer leaf keeps the stacked leading layer axis that the
-reference scans with ``lax.scan``, and ``forward`` loops over it in
-Python.  Caches are dicts of the same shape, updated in place.
+names; every per-layer leaf keeps the stacked leading layer axes that the
+reference scans with ``lax.scan`` (one for a layer stack, two -- round,
+then layer -- for the hybrid's Mamba2 rounds), and ``forward`` loops over
+them in Python.  Caches are dicts of the same shape, updated in place.
 
 Conventions (as in the reference):
 * ``positions`` is always (B, T) int absolute positions;
 * ``forward(...)`` returns ``(logits, cache, importance, aux_loss)``;
 * ``window`` > 0 enables sliding-window attention over a circular cache.
 
-Ported so far: ``family="dense"`` with a dense or a paged cache, and
+Ported so far: ``family="dense"`` with a dense or a paged cache,
 ``family="ssm"`` (Mamba2, per-layer conv windows and SSM states; nothing
-to page).  The other families raise ``NotImplementedError``.
+to page) and ``family="hybrid"`` (zamba2: rounds of Mamba2 layers, each
+followed by one weight-shared MHA block with its own KV cache; dense
+cache only).  The other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from repro_torch.models import layers as L
 from repro_torch.runtime import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def torch_dtype(cfg) -> torch.dtype:
@@ -60,48 +63,61 @@ def init_params(cfg, seed: int = 0, *, device=None):
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=dev)
 
-    V, d, n = cfg.vocab, cfg.d_model, cfg.n_layers
-    nh, nkv, hd, dff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    V, d = cfg.vocab, cfg.d_model
     sd = 1.0 / math.sqrt(d)
     params = {"embed": normal(V, d, scale=0.02), "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         params["unembed"] = normal(d, V, scale=sd)
-    if cfg.family == "ssm":
+
+    def mamba(*lead):
         # init_mamba: A_log, D and dt_bias are f32 whatever the model dtype
         di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         convC = di + 2 * N
         a_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
-        params["layers"] = {
-            "in_proj": normal(n, d, 2 * di + 2 * N + H, scale=sd),
-            "conv_w": normal(n, cfg.ssm_conv_width, convC, scale=0.1),
-            "conv_b": torch.zeros((n, convC), dtype=dt, device=dev),
-            "A_log": a_log.expand(n, H).clone(),
-            "D": torch.ones((n, H), device=dev),
-            "dt_bias": torch.zeros((n, H), device=dev),
-            "gate_norm": ones(n, di),
-            "out_proj": normal(n, di, d, scale=1.0 / math.sqrt(di)),
+        return {
+            "in_proj": normal(*lead, d, 2 * di + 2 * N + H, scale=sd),
+            "conv_w": normal(*lead, cfg.ssm_conv_width, convC, scale=0.1),
+            "conv_b": torch.zeros((*lead, convC), dtype=dt, device=dev),
+            "A_log": a_log.expand(*lead, H).clone(),
+            "D": torch.ones((*lead, H), device=dev),
+            "dt_bias": torch.zeros((*lead, H), device=dev),
+            "gate_norm": ones(*lead, di),
+            "out_proj": normal(*lead, di, d, scale=1.0 / math.sqrt(di)),
         }
-        return params
-    attn = {
-        "wq": normal(n, d, nh * hd, scale=sd),
-        "wk": normal(n, d, nkv * hd, scale=sd),
-        "wv": normal(n, d, nkv * hd, scale=sd),
-        "wo": normal(n, nh * hd, d, scale=sd / math.sqrt(2.0)),
-    }
-    if cfg.qkv_bias:
-        attn["bq"] = torch.zeros((n, nh * hd), dtype=dt, device=dev)
-        attn["bk"] = torch.zeros((n, nkv * hd), dtype=dt, device=dev)
-        attn["bv"] = torch.zeros((n, nkv * hd), dtype=dt, device=dev)
-    params["layers"] = {
-        "ln1": ones(n, d),
-        "ln2": ones(n, d),
-        "attn": attn,
-        "mlp": {
-            "w_gate": normal(n, d, dff, scale=sd),
-            "w_up": normal(n, d, dff, scale=sd),
-            "w_down": normal(n, dff, d, scale=1.0 / math.sqrt(dff)),
-        },
-    }
+
+    def dense_layer(*lead, mha=False):
+        # _init_dense_layer: mha=True gives n_kv = n_heads
+        nh, hd, dff = cfg.n_heads, cfg.head_dim, cfg.d_ff
+        nkv = nh if mha else cfg.n_kv_heads
+        attn = {
+            "wq": normal(*lead, d, nh * hd, scale=sd),
+            "wk": normal(*lead, d, nkv * hd, scale=sd),
+            "wv": normal(*lead, d, nkv * hd, scale=sd),
+            "wo": normal(*lead, nh * hd, d, scale=sd / math.sqrt(2.0)),
+        }
+        if cfg.qkv_bias:
+            for name, width in (("bq", nh), ("bk", nkv), ("bv", nkv)):
+                attn[name] = torch.zeros((*lead, width * hd), dtype=dt,
+                                         device=dev)
+        return {
+            "ln1": ones(*lead, d),
+            "ln2": ones(*lead, d),
+            "attn": attn,
+            "mlp": {
+                "w_gate": normal(*lead, d, dff, scale=sd),
+                "w_up": normal(*lead, d, dff, scale=sd),
+                "w_down": normal(*lead, dff, d, scale=1.0 / math.sqrt(dff)),
+            },
+        }
+
+    if cfg.family == "ssm":
+        params["layers"] = mamba(cfg.n_layers)
+    elif cfg.family == "hybrid":
+        params["mamba_rounds"] = mamba(cfg.n_layers // cfg.attn_every,
+                                       cfg.attn_every)
+        params["shared_attn"] = dense_layer(mha=True)
+    else:
+        params["layers"] = dense_layer(cfg.n_layers)
     return params
 
 
@@ -119,7 +135,10 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
 
     * ``"dense"`` -- one contiguous (batch, s_max) buffer per layer; for
       ``family="ssm"`` each layer's conv window and f32 SSM state instead
-      (fixed size: ``s_max`` is not used).
+      (fixed size: ``s_max`` is not used); for ``family="hybrid"``
+      ``{"mamba": ..., "attn": ...}``: the Mamba2 states with the two
+      leading axes of ``mamba_rounds``, and one KV buffer per round (one
+      per application of the shared attention block).
     * ``"paged"`` -- a shared pool of ``pool_blocks`` blocks of
       ``block_size`` tokens (default ``cfg.kv_block_size``) per layer,
       plus one (batch, s_max / block_size) int32 ``block_tables`` map
@@ -153,23 +172,35 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
                                        dtype=torch.int32, device=dev),
         }}
     _check_ported(cfg)
+
+    def kv_stack(n_stack):
+        shape = (n_stack, batch, s_max, nkv, hd)
+        return {
+            "k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev),
+            "pos": torch.full(shape[:3], -1, dtype=torch.int32, device=dev),
+        }
+
     if cfg.family == "ssm":
         # fixed-size conv windows and SSM states: s_max is not used
-        return {"layers": L.init_mamba_cache(cfg, batch, dt, layers=n,
+        return {"layers": L.init_mamba_cache(cfg, batch, dt, layers=(n,),
                                              device=dev)}
-    shape = (n, batch, s_max, nkv, hd)
-    return {"layers": {
-        "k": torch.zeros(shape, dtype=dt, device=dev),
-        "v": torch.zeros(shape, dtype=dt, device=dev),
-        "pos": torch.full(shape[:3], -1, dtype=torch.int32, device=dev),
-    }}
+    if cfg.family == "hybrid":
+        rounds = n // cfg.attn_every
+        return {"mamba": L.init_mamba_cache(cfg, batch, dt,
+                                            layers=(rounds, cfg.attn_every),
+                                            device=dev),
+                "attn": kv_stack(rounds)}
+    return {"layers": kv_stack(n)}
 
 
-def layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked parameter or cache tree (views).  A paged
-    cache's ``block_tables`` has no layer axis and is shared as is."""
-    return {k: layer_slice(v, i) if isinstance(v, dict)
-            else v if k == "block_tables" else v[i]
+def layer_slice(tree, *index: int):
+    """Layer ``index`` of a stacked parameter or cache tree (views): one
+    index for a layer stack, two (round, layer) for the hybrid's
+    ``mamba_rounds``.  A paged cache's ``block_tables`` has no layer axis
+    and is shared as is."""
+    return {k: layer_slice(v, *index) if isinstance(v, dict)
+            else v if k == "block_tables" else v[index]
             for k, v in tree.items()}
 
 
@@ -249,28 +280,30 @@ def swap_in_blocks(cache, blocks, payload):
 # ---------------------------------------------------------------------------
 
 def _layer(cfg, p, h, pos, cache, *, window=0, ret_imp=False,
-           write_index=None):
+           write_index=None, mha=False):
     a_in = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     a, nc, imp = L.attn_block(
         p["attn"], a_in, pos, cfg, cache, window=window,
-        return_importance=ret_imp, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        write_index=write_index)
+        return_importance=ret_imp, n_heads=cfg.n_heads,
+        n_kv=cfg.n_heads if mha else cfg.n_kv_heads, write_index=write_index)
     h = h + a
     f_in = L.rms_norm(h, p["ln2"], cfg.norm_eps)
     return h + L.mlp(p["mlp"], f_in), nc, imp
 
 
+def _write_index(positions, stack):
+    """The write index of a dense or paged KV stack for ``positions``,
+    computed once per forward and shared by every layer of the stack."""
+    if L.is_paged(stack):
+        return L.paged_write_index(positions, stack["block_tables"],
+                                   stack["k"].shape[2])
+    return L.cache_write_index(positions, stack["k"].shape[2])
+
+
 def _dense_stack(cfg, params, h, positions, cache, *, window, ret_imp):
-    """The dense decoder stack over a dense or paged KV cache; the cache's
-    write index is computed once and shared by every layer."""
-    windex = None
-    if cache is not None:
-        lc = cache["layers"]
-        if L.is_paged(lc):
-            windex = L.paged_write_index(positions, lc["block_tables"],
-                                         lc["k"].shape[2])
-        else:
-            windex = L.cache_write_index(positions, lc["k"].shape[2])
+    """The dense decoder stack over a dense or paged KV cache."""
+    windex = (_write_index(positions, cache["layers"])
+              if cache is not None else None)
     imps = []
     for i in range(cfg.n_layers):
         lc = layer_slice(cache["layers"], i) if cache is not None else None
@@ -296,20 +329,55 @@ def _ssm_backbone(cfg, params, h, cache, *, ret_imp):
     return h, torch.stack(imps).mean(0) if ret_imp else None
 
 
+def _hybrid_backbone(cfg, params, h, positions, cache, *, window, ret_imp):
+    """zamba2: each round runs ``attn_every`` Mamba2 residual blocks (no
+    pre-norm), then the weight-shared MHA block (``n_kv = n_heads``) over
+    that round's own KV cache.  A round's importance is the mean of its
+    Mamba2 blocks' and the attention block's, halved; the result is the
+    mean over rounds."""
+    rounds = cfg.n_layers // cfg.attn_every
+    windex = (_write_index(positions, cache["attn"])
+              if cache is not None else None)
+    shared = params["shared_attn"]
+    imps = []
+    for r in range(rounds):
+        imps_m = []
+        for i in range(cfg.attn_every):
+            mc = (layer_slice(cache["mamba"], r, i) if cache is not None
+                  else None)
+            out, _, imp = L.mamba_block(
+                layer_slice(params["mamba_rounds"], r, i), cfg, h, mc,
+                return_importance=ret_imp)
+            h = h + out
+            if ret_imp:
+                imps_m.append(imp)
+        ac = layer_slice(cache["attn"], r) if cache is not None else None
+        h, _, imp_a = _layer(cfg, shared, h, positions, ac, window=window,
+                             ret_imp=ret_imp, write_index=windex, mha=True)
+        if ret_imp:
+            imps.append((torch.stack(imps_m).mean(0) + imp_a) / 2)
+    return h, torch.stack(imps).mean(0) if ret_imp else None
+
+
 def forward(cfg, params, tokens, positions, cache=None, *, window: int = 0,
             return_importance: bool = False):
     """tokens: (B, T) int; positions: (B, T) int.
 
     Returns (logits (B, T, V), cache, importance or None, aux_loss):
     importance is (B, S) over the attention keys for the dense family,
-    (B, T) per token for ssm.  ``cache`` is updated in place and returned
-    (None without a cache).
+    (B, T) per token for ssm and hybrid (the hybrid's attention keys are
+    its tokens: without a cache, as in the reference, whose sum needs S
+    = T).  ``cache`` is updated in place and returned (None without a
+    cache).
     """
     _check_ported(cfg)
     h = params["embed"][tokens]
     if cfg.family == "ssm":
         h, imp = _ssm_backbone(cfg, params, h, cache,
                                ret_imp=return_importance)
+    elif cfg.family == "hybrid":
+        h, imp = _hybrid_backbone(cfg, params, h, positions, cache,
+                                  window=window, ret_imp=return_importance)
     else:
         h, imp = _dense_stack(cfg, params, h, positions, cache,
                               window=window, ret_imp=return_importance)

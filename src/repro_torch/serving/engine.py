@@ -576,13 +576,15 @@ class CloudEngine:
                  host_swap_blocks: int | None = None,
                  paged_block_kv: int | None = None,
                  kv_splits: int | None = None, device=None):
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             # bucket padding (token 0 at position -1) would enter the conv
-            # window and the SSM state, and a rejected draft cannot be
-            # rewound out of a recurrent state (ROADMAP queue 3, R6)
-            raise ValueError(f"CloudEngine cannot serve the ssm family "
-                             f"({cfg.name}): padded feeds would corrupt "
-                             f"its state (R6); use the model-level steps")
+            # windows and the SSM states of the Mamba2 layers, and a
+            # rejected draft cannot be rewound out of a recurrent state
+            # (ROADMAP queue 3, R6)
+            raise ValueError(f"CloudEngine cannot serve the {cfg.family} "
+                             f"family ({cfg.name}): padded feeds would "
+                             f"corrupt its Mamba2 state (R6); use the "
+                             f"model-level steps")
         # paged-kernel split layout knobs ride on the config, which the
         # steps read
         if paged_block_kv is not None:

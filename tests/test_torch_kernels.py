@@ -56,6 +56,7 @@ def _np(x):
     (1, 100, 100, 8, 8, 64, True),      # non-divisible T (padding)
     (2, 32, 32, 4, 4, 16, False),
     (1, 16, 16, 8, 1, 32, True),        # MQA
+    (1, 24, 24, 4, 4, 80, True),        # hd 80: zamba2's shared block
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attn_importance_matches_pallas(B, T, S, nh, nkv, hd, causal, dtype):
@@ -99,6 +100,9 @@ def _cache_positions(rng, B, S, C):
     (1, 32, 100, 8, 8, 64, 0),
     (2, 4, 256, 4, 1, 16, 64),
     (3, 16, 96, 6, 3, 32, 0),
+    (2, 8, 128, 4, 4, 80, 0),           # hd 80 (zamba2), MHA
+    (1, 8, 96, 12, 2, 32, 0),           # g = 6 (qwen2-1.5b)
+    (1, 4, 96, 16, 1, 32, 0),           # g = 16 (glm4-9b)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_partial_prefill_matches_pallas(B, C, S, nh, nkv, hd, window, dtype):
@@ -126,6 +130,9 @@ def test_partial_prefill_matches_pallas(B, C, S, nh, nkv, hd, window, dtype):
     (1, 300, 4, 4, 64, 0),     # non-divisible S
     (3, 256, 8, 1, 16, 64),    # MQA + sliding window
     (2, 64, 16, 4, 32, 0),
+    (2, 128, 4, 4, 80, 0),     # hd 80 (zamba2), MHA
+    (2, 96, 12, 2, 32, 0),     # g = 6 (qwen2-1.5b)
+    (2, 96, 16, 1, 32, 0),     # g = 16 (glm4-9b)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_gqa_matches_pallas(B, S, nh, nkv, hd, window, dtype):
@@ -194,8 +201,8 @@ DENSE_CASES = [(i, c) for i, c in enumerate(_SMOKE.KERNEL_CASES)
 def test_dense_split_contract(index, case):
     """The dense kernels' split-KV layout at chip_smoke.py's phase-2
     shapes (the serving shapes and the edge shapes: S not a multiple of
-    32, one needed tile, an idle slot, a window, g in {1, 2, 4, 8}, hd in
-    {16, 32, 64, 128}).  The host's split count is at least 1 and a
+    32, one needed tile, an idle slot, a window, g in {1, 2, 4, 6, 8, 16},
+    hd in {16, 32, 64, 80, 128}).  The host's split count is at least 1 and a
     function of the shapes alone; the plain per-split partials, merged by
     ``paged.combine_splits``, give the unsplit plain output within f32
     2e-5, at that count and at 3 splits; padded rows and idle slots give
@@ -264,8 +271,8 @@ def test_importance_phase2_shapes_match_pallas(index, case, dtype):
     against the reference's Pallas kernel in interpret mode, with explicit
     positions, at chip_smoke.py's phase-2 importance shapes (the draft
     step, GQA, S = 1000, an idle slot, 16 rows at g = 8 and hd 128, S =
-    4096 at hd 32, one needed tile), cut to the first two slots and kv
-    heads.  A slot that no row may see has importance exactly 0, and an
+    4096 at hd 32, one needed tile, hd 80 with and without an idle slot),
+    cut to the first two slots and kv heads.  A slot that no row may see has importance exactly 0, and an
     idle slot's rows are exactly 0."""
     name, _, shape, _, opts = case
     B, Tq, S, nh, nkv, hd = shape[:6]

@@ -104,6 +104,7 @@ def _gathered(kp, vp, pos, bt, dtype):
     (3, 24, 8, 6, 4, 2, 32, 0),
     (2, 12, 16, 4, 8, 8, 64, 0),
     (2, 40, 8, 8, 4, 1, 16, 24),    # MQA + sliding window
+    (2, 16, 8, 6, 4, 4, 80, 0),     # hd 80 (zamba2's width), MHA
 ])
 @pytest.mark.parametrize("blkv,splits", PAGED_VARIANTS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -138,6 +139,7 @@ def test_decode_paged_matches_reference(pallas_paged, B, nb, bs, mbps, nh,
     (2, 8, 24, 8, 6, 4, 2, 32, 0),
     (1, 16, 12, 16, 4, 8, 8, 64, 0),
     (2, 4, 40, 8, 8, 4, 1, 16, 24),
+    (2, 8, 16, 8, 6, 4, 4, 80, 0),  # hd 80 (zamba2's width), MHA
 ])
 @pytest.mark.parametrize("blkv,splits", PAGED_VARIANTS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,6 +1,6 @@
 """Run the port's CUDA kernels on the CPU, for logic checks without a card.
 
-    PYTHONPATH=src python tools/cuda_emu/emulate.py [attn_importance] [ssd_scan] [partial_prefill]
+    PYTHONPATH=src python tools/cuda_emu/emulate.py [attn_importance] [ssd_scan] [partial_prefill] [decode_gqa]
 
 Each kernel source under ``src/repro_torch/kernels/csrc`` is rewritten for
 the stub headers beside this file (the kernels' inline-PTX helpers become
@@ -11,8 +11,10 @@ shapes.  Its outputs are held against
 the kernel's plain PyTorch version at ``chip_smoke.py``'s tolerances, and a
 second call must give the same bits.  Every CUDA thread is a
 ``std::thread``, so the shapes stay small; nothing here is a timing.
-``partial_prefill`` runs a kernel already proven on the card, as a check of
-the emulation itself.
+``partial_prefill`` and ``decode_gqa`` at hd 64 / 128 with g <= 8 run
+kernels already proven on the card, as a check of the emulation itself;
+their hd 80 and g = 6 / 16 cases, and ``attn_importance``'s hd 80 cases,
+check the shapes zamba2 and the dense configs add.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import torch
 from repro_torch.kernels import DTYPE_CODES
 from repro_torch.kernels import attn_importance as AI
 from repro_torch.kernels import build
+from repro_torch.kernels import decode_gqa as DG
+from repro_torch.kernels import paged as PG
 from repro_torch.kernels import partial_prefill as PP
 from repro_torch.kernels import ssd_scan as SS
 from repro_torch.models.layers import softplus
@@ -116,7 +120,9 @@ def check_attn_importance() -> bool:
              (1, 16, 128, 8, 1, 128, 30, 100, True, False),
              (1, 1, 4096, 2, 2, 32, 2000, 4000, True, False),
              (2, 3, 512, 2, 2, 16, 0, 20, True, False),
-             (1, 20, 96, 2, 1, 32, 10, 60, False, False)]
+             (1, 20, 96, 2, 1, 32, 10, 60, False, False),
+             (1, 1, 512, 2, 2, 80, 64, 288, True, False),
+             (2, 5, 200, 2, 2, 80, 20, 150, True, True)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, Tq, S, nh, nkv, hd, lo, hi, causal, idle in cases:
             rng = np.random.default_rng(0)
@@ -207,35 +213,97 @@ def check_ssd_scan() -> bool:
     return ok
 
 
+def _workspace(groups, splits, rows, hd):
+    """The split-KV scratch of a dense launch (NaN-filled), as pointers."""
+    if splits == 1:
+        return None, None, None
+    ws = PG.split_workspace(groups, splits, rows, hd, "cpu")
+    for t in ws:
+        t.fill_(float("nan"))
+    return ws
+
+
 def check_partial_prefill() -> bool:
     fn = load("partial_prefill").partial_prefill_launch
-    B, C, S, nh, nkv, hd = 2, 16, 128, 4, 2, 64
-    qp = np.full((B, C), -1, np.int32)
-    kp = np.full((B, S), -1, np.int32)
-    for b in range(B):
-        n = 40 + 20 * b
-        kp[b, :n + C] = np.arange(n + C)
-        qp[b] = n + np.arange(C)
-    qpt, kpt = torch.from_numpy(qp), torch.from_numpy(kp)
+    # (B, C, S, nh, nkv, hd, splits): hd 64 is the card-proven case; hd 80
+    # (zamba2) as one row tile, as 80 rows over two tiles with a split,
+    # and as a full 64-row tile; g = 6 (qwen2-1.5b) and g = 16 (glm4-9b)
+    cases = [(2, 16, 128, 4, 2, 64, 1), (2, 16, 160, 4, 4, 80, 1),
+             (1, 40, 200, 2, 2, 80, 2), (1, 64, 128, 4, 4, 80, 1),
+             (1, 8, 128, 12, 2, 128, 1), (1, 4, 160, 32, 2, 128, 2)]
     ok = True
-    for dtype in (torch.float32, torch.bfloat16):
-        g = torch.Generator().manual_seed(0)
-        q, k, v = (torch.randn(*s, generator=g).to(dtype) for s in (
-            (B, C, nh, hd), (B, S, nkv, hd), (B, S, nkv, hd)))
-        out = torch.full_like(q, float("nan"))
-        _call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), qpt.data_ptr(),
-                  kpt.data_ptr(), out.data_ptr(), None, None, None, B, C, S,
-                  nh, nkv, hd, 1, 0, DTYPE_CODES[dtype], None)
-        ref = PP.partial_prefill_ref(q, k, v, qpt, kpt)
-        e = float((out.float() - ref.float()).abs().max())
-        ok &= _report(f"partial_prefill {B, C, S, nh, nkv, hd} {dtype}",
-                      {"out": e}, e <= TOL[dtype])
+    for B, C, S, nh, nkv, hd, splits in cases:
+        rng = np.random.default_rng(0)
+        qp = np.full((B, C), -1, np.int32)
+        kp = np.full((B, S), -1, np.int32)
+        for b in range(B):
+            n = int(rng.integers(20, S - C))
+            nq = int(rng.integers(1, C + 1))
+            kp[b, :n + nq] = np.arange(n + nq)
+            qp[b, :nq] = n + np.arange(nq)
+        qpt, kpt = torch.from_numpy(qp), torch.from_numpy(kp)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(0)
+            q, k, v = (torch.randn(*s, generator=g).to(dtype) for s in (
+                (B, C, nh, hd), (B, S, nkv, hd), (B, S, nkv, hd)))
+            ws = _workspace(B * nkv, splits, nh // nkv * C, hd)
+            out = torch.full_like(q, float("nan"))
+            _call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  qpt.data_ptr(), kpt.data_ptr(), out.data_ptr(),
+                  *(_ptr(t) for t in ws), B, C, S, nh, nkv, hd, splits, 0,
+                  DTYPE_CODES[dtype], None)
+            ref = PP.partial_prefill_ref(q, k, v, qpt, kpt)
+            e = float((out.float() - ref.float()).abs().max())
+            good = e <= TOL[dtype] and bool((out[qpt < 0] == 0).all())
+            ok &= _report(f"partial_prefill {B, C, S, nh, nkv, hd} "
+                          f"splits={splits} {dtype}", {"out": e}, good)
+    return ok
+
+
+def check_decode_gqa() -> bool:
+    fn = load("decode_gqa").decode_gqa_launch
+    # (B, S, nh, nkv, hd, window, splits, idle slot 1): hd 128 g 4 is the
+    # card-proven case; hd 80 (zamba2) one split, three splits and a
+    # window; g = 6 (qwen2-1.5b) and g = 16 (glm4-9b)
+    cases = [(2, 200, 8, 2, 128, 0, 2, False), (2, 200, 4, 4, 80, 0, 1, True),
+             (2, 300, 4, 4, 80, 0, 3, False), (2, 256, 2, 2, 80, 64, 2, False),
+             (1, 300, 12, 2, 128, 0, 2, False),
+             (1, 300, 32, 2, 128, 0, 1, False)]
+    ok = True
+    for B, S, nh, nkv, hd, window, splits, idle in cases:
+        rng = np.random.default_rng(1)
+        kp = np.full((B, S), -1, np.int32)
+        qp = np.zeros(B, np.int32)
+        for b in range(B):
+            n = int(rng.integers(S // 2, S))
+            kp[b, :n] = np.arange(n)
+            qp[b] = n - 1
+        if idle:
+            qp[1] = -1
+        qpt, kpt = torch.from_numpy(qp), torch.from_numpy(kp)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(1)
+            q, k, v = (torch.randn(*s, generator=g).to(dtype) for s in (
+                (B, nh, hd), (B, S, nkv, hd), (B, S, nkv, hd)))
+            ws = _workspace(B * nkv, splits, nh // nkv, hd)
+            out = torch.full_like(q, float("nan"))
+            _call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  qpt.data_ptr(), kpt.data_ptr(), out.data_ptr(),
+                  *(_ptr(t) for t in ws), B, S, nh, nkv, hd, splits, window,
+                  DTYPE_CODES[dtype], None)
+            ref = DG.decode_attention_ref(q, k, v, qpt, kpt, window=window)
+            e = float((out.float() - ref.float()).abs().max())
+            good = e <= TOL[dtype] and (not idle or bool((out[1] == 0).all()))
+            ok &= _report(f"decode_gqa {B, S, nh, nkv, hd} window={window} "
+                          f"splits={splits} idle={idle} {dtype}", {"out": e},
+                          good)
     return ok
 
 
 CHECKS = {"attn_importance": check_attn_importance,
           "ssd_scan": check_ssd_scan,
-          "partial_prefill": check_partial_prefill}
+          "partial_prefill": check_partial_prefill,
+          "decode_gqa": check_decode_gqa}
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
