@@ -59,6 +59,20 @@ kernels, identical float32 greedy streams at 2 rounds, and prefill
 logits within cosine 0.999 of the plain path at one round (at full
 depth the plain path's own floor is far lower, so there the cosine is
 logged, beside the plain path with P rounded to bf16 as a witness).
+Phase 10 serves the reference's MoE configs at published widths in bf16
+-- qwen3-moe-235b-a22b at 8 of its 94 layers, llama4-maverick-400b-a17b
+at one round (a dense and an MoE layer) of its 48 -- with
+``run_cloud_centric`` on a dense and on a paged, prefix-sharing engine
+(each path's two attention kernels launched and nothing else, no leaked
+block), holds the prefill logits against the plain attention path routed
+as the kernel path chose (cosine >= 0.999, after the plain floor clears
+it), profiles one prefill and one decode step
+(busy share, launches, host syncs, the experts' GEMM time against the
+attention kernels), and at 2 layers in float32 requires identical
+streams through the kernels and the plain path, dense and paged.  Phase 2
+holds the attention kernels at the shapes phase 10 launches (g = 16 over
+4 KV heads, g = 5 over 8); phase 4 also serves the tiny pair with its LLM
+made MoE, dense and paged, through the kernels and the plain paths.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -325,7 +339,11 @@ def _library_call(name, a, window=0):
 # half, all rows filled as the model-level steps fill them; and each
 # phase-8 config's prefill buckets (C = 64, 128, 256: prompts of 64-256
 # tokens from position 0, the tail rows padded) and decode over its
-# 512-slot cache.
+# 512-slot cache.  Then the GQA groups of phase 10's MoE configs, hd 128:
+# g = 16 over nkv 4 (qwen3-moe, nh 64) and g = 5 over nkv 8
+# (llama4-maverick, nh 40; its g C packed rows fill no whole number of
+# 16-row tiles at C = 8): decode over the 512-slot cache, each prefill
+# bucket from position 0, and a C = 8 verify chunk over a cached prefix.
 # Options: ``window`` (the kernel's argument), ``idle`` (slot 1 has no
 # query), ``full`` (no padded query rows).
 KERNEL_CASES = [
@@ -409,6 +427,17 @@ KERNEL_CASES = [
      (4, 512, nh, nkv, hd, 64, 272), False, {})
     for cfg, nh, nkv, hd in (("llama3.2-1b", 32, 8, 64),
                              ("qwen1.5-110b", 64, 8, 128))
+] + [
+    case
+    for cfg, nh, nkv in (("qwen3-moe", 64, 4), ("llama4-maverick", 40, 8))
+    for case in (
+        [("decode_attention", f"{cfg} decode g={nh // nkv}",
+          (4, 512, nh, nkv, 128, 64, 272), False, {}),
+         ("partial_prefill_attention", f"{cfg} verify C=8 g={nh // nkv}",
+          (4, 8, 512, nh, nkv, 128, 64, 272), False, {})]
+        + [("partial_prefill_attention", f"{cfg} prefill C={c} g={nh // nkv}",
+            (4, c, 512, nh, nkv, 128, 0, 1), False, {})
+           for c in (64, 128, 256)])
 ]
 
 
@@ -540,6 +569,17 @@ PAGED_CASES = [
     ("partial_prefill_attention_paged", "hd=80",
      (4, 32, 32, 32, 80, 16, 64, 512, 280, 320, 0), [(128, 1), (128, 4)],
      False),
+] + [
+    # phase 10's paged engines (4 slots, s_max 512 in 16-token blocks, the
+    # default 128-block pool and layout) at the MoE configs' groups
+    (name, f"{cfg} {label} g={nh // nkv}",
+     (4, c, nh, nkv, 128, 16, 32, 128, 64, 272, 0), [PAGED_MAIN], False)
+    for cfg, nh, nkv in (("qwen3-moe", 64, 4), ("llama4-maverick", 40, 8))
+    for name, label, c in (("decode_attention_paged", "decode", 1),
+                           ("partial_prefill_attention_paged", "verify C=8",
+                            8),
+                           ("partial_prefill_attention_paged", "chunk C=64",
+                            64))
 ]
 
 
@@ -1022,6 +1062,50 @@ def phase_tiny_identity(device="cuda"):
                 raise RuntimeError(f"tiny paged engine leaked blocks: {pool}")
     if runs["pallas paged"] != runs["plain dense"]:
         raise RuntimeError(f"paged token streams differ: {runs}")
+
+    # the tiny pair with its LLM made MoE (tests/test_torch_moe.py's two
+    # variants), each engine layout through the kernels and the plain paths
+    prompts = tiny_moe_prompts()
+    for label, (fields, kw) in TINY_MOE.items():
+        moe_cfg = llm_cfg.replace(**fields)
+        moe_p = M.init_params(moe_cfg, seed=1, device=device)
+        shas = {}
+        for impl in ("pallas", "plain"):
+            pallas = impl == "pallas"
+            sc = slm_cfg.replace(attn_impl="pallas" if pallas else "naive")
+            lc = moe_cfg.replace(attn_impl="pallas" if pallas else "blocked")
+            dev = DeviceRuntime(sc, slm_p, gamma=4, s_max=256, device=device,
+                                policy=OffloadPolicy(mode="all"))
+            eng = CloudEngine(lc, moe_p, max_slots=4, s_max=256,
+                              device=device, **kw)
+            r1 = SY.run_synera(dev, eng, prompts, 16, concurrency=2)
+            r2 = SY.run_cloud_centric(eng, prompts[:2], 16)
+            shas[impl] = (outputs_sha(r1.outputs), outputs_sha(r2.outputs))
+            log(f"[tiny] moe {label} {impl}: run_synera sha {shas[impl][0]}, "
+                f"run_cloud_centric sha {shas[impl][1]}, offloaded "
+                f"{sum(m.n_offloaded for m in r1.metrics)} chunks")
+        if shas["pallas"] != shas["plain"]:
+            raise RuntimeError(f"moe {label} token streams differ: {shas}")
+
+
+# tests/test_torch_moe.py's tiny MoE LLMs: (fields of the tiny LLM, engine
+# keyword arguments)
+TINY_MOE = {
+    "dense": (dict(family="moe", n_layers=2, n_experts=4, top_k=2), {}),
+    "paged": (dict(family="moe", n_layers=4, moe_every=2, n_experts=4,
+                   top_k=1, n_shared_experts=1),
+              dict(cache_impl="paged", block_size=16, share_prefix=True)),
+}
+
+
+def tiny_moe_prompts(seed=7):
+    """Three prompts behind one 32-token common prefix and one of its own
+    (tests/test_torch_moe.py's)."""
+    rng = np.random.default_rng(seed)
+    common = [int(t) for t in rng.integers(1, 60, size=32)]
+    shared = [common + [int(t) for t in rng.integers(1, 60, size=n)]
+              for n in (3, 9, 14)]
+    return shared + [[int(t) for t in rng.integers(1, 60, size=20)]]
 
 
 # ---------------------------------------------------------------------------
@@ -2019,6 +2103,369 @@ def phase_ssm(cfg=None, *, tiny=None, batch=4, prompt_len=512, n_new=32,
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the MoE family at full width
+# ---------------------------------------------------------------------------
+
+# (config, layers kept): whole, the two are ~470 GB and ~800 GB in bf16,
+# so each keeps every width as published and is cut in depth to fit the
+# card: qwen3-moe to 8 of its 94 layers (39.40 GiB of weights),
+# llama4-maverick to one round of its 24 -- a dense layer, then an MoE
+# layer with the shared expert -- (34.56 GiB; the round's 128 experts
+# alone are 32.2 GB)
+MOE_CONFIGS = [("qwen3-moe-235b-a22b", 8), ("llama4-maverick-400b-a17b", 2)]
+# the float32 check at 2 layers keeps every width; llama4's 128 experts
+# would be ~66 GB in f32 there, so it keeps 16
+MOE_F32_EXPERTS = {"llama4-maverick-400b-a17b": 16}
+# the prefill-logits gate, kernels vs plain with the plain path routed as
+# the kernels chose (PERF.md section 6, PR 20): each path routing itself,
+# a rounding difference flips experts, and the kernel path's bf16 P moves
+# the logits more than the plain floor's f32 reordering does
+MOE_COSINE_GATE = 0.999
+# profiler range names of the MoE layers' device work
+MOE_RANGES = ("moe_ffn", "grouped_ffn")
+
+
+class moe_ranges:
+    """While active, every ``moe_ffn`` call and, inside it, the experts'
+    products (``grouped_ffn``) run under a ``record_function`` range of
+    that name, so the profiler can attribute their kernels."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from repro_torch.models import layers as L
+        self.saved = {n: getattr(L, n) for n in MOE_RANGES}
+
+        def ranged(name, fn):
+            def call(*a, **k):
+                with record_function(name):
+                    return fn(*a, **k)
+            return call
+
+        for n, fn in self.saved.items():
+            setattr(L, n, ranged(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        for n, fn in self.saved.items():
+            setattr(L, n, fn)
+        return False
+
+
+def profile_moe_step(fn):
+    """Run ``fn`` under torch.profiler (host and device) with the MoE
+    ranges on.  Returns a dict: wall s, summed kernel s, the port's
+    attention kernels' s, the device s of the ``moe_ffn`` and
+    ``grouped_ffn`` ranges, host syncs (``cudaStreamSynchronize``),
+    ``cudaMemcpyAsync`` calls (any direction) and kernel launches; None
+    when the profiler reports no device time.  The profiler slows the
+    host, so the busy share is a lower bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with moe_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = prof.events()
+    kernels = [e for e in evs if e.device_type == DeviceType.CUDA
+               and e.name not in MOE_RANGES]
+    if not kernels:
+        return None
+
+    def dev_s(e):
+        us = (e.device_time_total if hasattr(e, "device_time_total")
+              else e.cuda_time_total)
+        return us / 1e6
+
+    cpu = [e for e in evs if e.device_type == DeviceType.CPU]
+    return dict(
+        wall_s=wall,
+        kernel_s=sum(e.time_range.elapsed_us() for e in kernels) / 1e6,
+        attention_s=sum(e.time_range.elapsed_us() for e in kernels
+                        if any(k in e.name for k in PORT_KERNEL_SYMBOLS))
+        / 1e6,
+        **{f"{n}_s": sum(dev_s(e) for e in cpu if e.name == n)
+           for n in MOE_RANGES},
+        syncs=sum(e.name == "cudaStreamSynchronize" for e in cpu),
+        memcpys=sum(e.name == "cudaMemcpyAsync" for e in cpu),
+        launches=sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                     for e in cpu))
+
+
+def _engine_streams(eng, prompts, max_new):
+    import torch
+    from repro_torch.serving import synergy as SY
+    with torch.no_grad():
+        return SY.run_cloud_centric(eng, prompts, max_new)
+
+
+def _free(device):
+    import torch
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_moe_configs(configs=MOE_CONFIGS, device="cuda"):
+    """Each MoE config of the reference at full width, cut in depth, in
+    bf16 with random weights from a seed: ``run_cloud_centric`` on phase
+    8's four prompts (64-256 tokens, 16 new tokens each) on a dense
+    ``CloudEngine`` (both dense attention kernels launched, nothing
+    else) and on a paged one with prefix sharing (both paged kernels,
+    nothing else; no leaked block).  The prefill logits are held against
+    the plain (blocked) attention path with the plain path routed as the
+    kernel path chose (cosine >= 0.999, after the plain floor, naive vs
+    blocked routed so, clears it); each path routing itself, the cosine
+    is logged (a flipped expert moves it far).
+    One engine decode step and the 256-token prefill run under the
+    profiler: busy share, launches, host syncs, and the kernel time of
+    the experts' products against the attention kernels.  At 2 layers
+    in float32 the streams through the kernels and the plain path, dense
+    and paged, must be identical.  Frees each config before the next."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import splits as SP
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import CloudEngine
+
+    checks = {}
+    sms = SP.sm_count(torch.device(device)) if device == "cuda" else \
+        SP.SM_COUNT
+    paged_kw = dict(cache_impl="paged", block_size=16, share_prefix=True)
+    for name, depth in configs:
+        full = get_config(name)
+        cfg = full.replace(attn_impl="pallas", n_layers=depth)
+        g = cfg.n_heads // cfg.n_kv_heads
+        n_moe = (depth if cfg.moe_every == 1 else depth // cfg.moe_every)
+        _free(device)
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, seed=0, device=device)
+        _sync(device)
+        log(f"[moe] {name}: {depth} of {full.n_layers} layers ({n_moe} MoE; "
+            f"cut: the whole model does not fit one card), widths as "
+            f"published: d_model {cfg.d_model}, {cfg.n_heads} heads / "
+            f"{cfg.n_kv_heads} kv (g {g}) x {cfg.head_dim}, {cfg.n_experts} "
+            f"experts of d_ff {cfg.d_ff}, top-{cfg.top_k}, moe_every "
+            f"{cfg.moe_every}, shared {cfg.n_shared_experts}, vocab "
+            f"{cfg.vocab}; {_weights_gib(params):.2f} GiB of bf16 weights; "
+            f"init {time.perf_counter() - t0:.2f} s")
+        prompts = dense_prompts(cfg.vocab)
+        shas = {}
+        for layout, kw, path in (("dense", {}, DENSE_PATH[:2]),
+                                 ("paged", paged_kw, PAGED_PATH)):
+            eng = CloudEngine(cfg, params, max_slots=DENSE_SLOTS,
+                              s_max=DENSE_S_MAX, device=device, **kw)
+            _engine_streams(eng, prompts[:1], 2)   # warm-up
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            _sync(device)
+            t0 = time.perf_counter()
+            res = _engine_streams(eng, prompts, DENSE_MAX_NEW)
+            _sync(device)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            n_tok = sum(len(o) for o in res.outputs)
+            peak = (torch.cuda.max_memory_allocated() / 2**30
+                    if device == "cuda" else float("nan"))
+            shas[layout] = outputs_sha(res.outputs)
+            log(f"[moe] {name} {layout}: run_cloud_centric, {len(prompts)} "
+                f"prompts, {n_tok} tokens in {wall:.3f} s wall "
+                f"({n_tok / wall:.2f} tokens/s); sha {shas[layout]}; peak "
+                f"{peak:.2f} GiB allocated; launches "
+                f"{json.dumps({k: v for k, v in launches.items() if v})}")
+            checks[f"{name} {layout}: outputs"] = all(
+                len(o) == DENSE_MAX_NEW and all(0 <= t < cfg.vocab for t in o)
+                for o in res.outputs)
+            checks[f"{name} {layout}: {', '.join(path)} launched, nothing "
+                   f"else"] = (all(launches[k] > 0 for k in path) and all(
+                       v == 0 for k, v in launches.items() if k not in path))
+            if layout == "paged":
+                a = eng.allocator
+                pool = eng.pool_stats
+                log(f"[moe] {name} paged: pool " + json.dumps(
+                    {k: pool[k] for k in ("n_blocks", "peak_used_blocks",
+                                          "dedupe_hit_blocks",
+                                          "kv_cache_bytes")})
+                    + f"; streams equal to the dense engine's: "
+                    f"{shas['paged'] == shas['dense']}")
+                checks[f"{name} paged: no leaked block"] = (
+                    a.used_blocks == 0
+                    and a.free_blocks + a.cached_blocks == a.n_blocks)
+            else:
+                grids = {f"prefill C={c}": SP.dense_grid(
+                    DENSE_SLOTS, cfg.n_kv_heads, g * c, DENSE_S_MAX,
+                    decode=False, sms=sms)
+                    for c in eng.compile_stats["buckets"]}
+                grids["decode"] = SP.dense_grid(
+                    DENSE_SLOTS, cfg.n_kv_heads, g, DENSE_S_MAX, decode=True,
+                    sms=sms)
+                log(f"[moe] {name}: splits / grid: " + json.dumps(grids))
+                if device == "cuda":
+                    profile_moe_engine(name, eng, prompts[-1], n_moe)
+            del eng
+            _free(device)
+
+        # prefill logits, kernels vs plain attention: each path routing
+        # itself (logged), and the plain path routed as the kernel path
+        # chose (gated, once its own floor clears the gate)
+        cos = prefill_cosines(cfg, params, prompts, device)
+        for label, vals in cos.items():
+            log(f"[moe] {name}: prefill logits, {label}: cosine per prompt "
+                f"{[round(c, 6) for c in vals]}")
+        for label in ("plain floor, routing pinned",
+                      "kernel vs plain, routing pinned"):
+            checks[f"{name}: {label} >= {MOE_COSINE_GATE}"] = \
+                min(cos[label]) >= MOE_COSINE_GATE
+        del params
+        _free(device)
+
+        # 2 layers at full width in float32: kernel vs plain streams, and
+        # the dense vs the paged engine
+        c32 = cfg.replace(n_layers=2, dtype="float32",
+                          n_experts=MOE_F32_EXPERTS.get(name, cfg.n_experts))
+        p32 = M.init_params(c32, seed=1, device=device)
+        f32 = {}
+        for label, impl, kw in (("dense kernels", "pallas", {}),
+                                ("dense plain", "blocked", {}),
+                                ("paged kernels", "pallas", paged_kw)):
+            eng = CloudEngine(c32.replace(attn_impl=impl), p32,
+                              max_slots=DENSE_SLOTS, s_max=DENSE_S_MAX,
+                              device=device, **kw)
+            f32[label] = outputs_sha(_engine_streams(
+                eng, prompts, DENSE_MAX_NEW).outputs)
+            del eng
+        log(f"[moe] {name}: 2 layers f32 ({c32.n_experts} experts), stream "
+            f"shas {json.dumps(f32)}")
+        checks[f"{name}: f32 streams identical (kernels, plain, paged)"] = \
+            len(set(f32.values())) == 1
+        del p32
+        _free(device)
+    failed = [k for k, v in checks.items() if not v]
+    log("[moe] checks: " + json.dumps(checks))
+    if failed:
+        raise RuntimeError(f"MoE phase failed: {failed}")
+
+
+class pinned_routing:
+    """While active, record the expert choices of every ``moe_route`` call
+    or, given an earlier pass's record, route each call in order to the
+    experts recorded there, weighted by this pass's own probabilities.
+    Two paths compared this way differ by their attention and products
+    alone, not by an expert that a rounding difference flipped."""
+
+    def __init__(self, replay=None):
+        self.choices = []
+        self.replay = None if replay is None else list(replay)
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers as L
+        self.saved = route = L.moe_route
+
+        def pinned(router, xf, top_k):
+            if self.replay is None:
+                probs, top_p, top_e = route(router, xf, top_k)
+                self.choices.append(top_e)
+                return probs, top_p, top_e
+            probs = torch.softmax(xf.float() @ router, dim=-1)
+            top_e = self.replay.pop(0)
+            top_p = probs.gather(1, top_e)
+            return probs, top_p / top_p.sum(-1, keepdim=True), top_e
+
+        L.moe_route = pinned
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.moe_route = self.saved
+        return False
+
+
+def prefill_cosines(cfg, params, prompts, device):
+    """Per prompt, cosines of the prefill logits (``cfg`` routes with
+    ``moe_route``): the kernel path against the plain (blocked) path and
+    the plain floor (naive vs blocked), each path routing itself; the
+    same two with every plain pass routed as the kernel pass chose; and,
+    routed so, the witness: blocked attention with P rounded to bf16
+    before P.V, as the bf16 prefill kernel rounds it."""
+    import torch
+    from unittest import mock
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    def run(impl, replay=None, witness=False):
+        with pinned_routing(replay) as rec, mock.patch.object(
+                L, "blocked_attention",
+                _blocked_bf16_p if witness else L.blocked_attention):
+            out = M.forward(cfg.replace(attn_impl=impl), params, toks,
+                            pos)[0]
+        return out, rec.choices
+
+    cos = {k: [] for k in (
+        "kernel vs plain", "plain floor (naive vs blocked)",
+        "kernel vs plain, routing pinned", "plain floor, routing pinned",
+        "bf16-P witness vs plain, routing pinned")}
+    with torch.no_grad():
+        for p in prompts:
+            toks = torch.tensor([p], device=device)
+            pos = M.default_positions(1, len(p), device=device)
+            lk, chosen = run("pallas")
+            lp, ln = run("blocked")[0], run("naive")[0]
+            cos["kernel vs plain"].append(_cosine(lk, lp))
+            cos["plain floor (naive vs blocked)"].append(_cosine(ln, lp))
+            del lp, ln
+            lp = run("blocked", chosen)[0]
+            ln = run("naive", chosen)[0]
+            lw = run("blocked", chosen, witness=True)[0]
+            cos["kernel vs plain, routing pinned"].append(_cosine(lk, lp))
+            cos["plain floor, routing pinned"].append(_cosine(ln, lp))
+            cos["bf16-P witness vs plain, routing pinned"].append(
+                _cosine(lw, lp))
+            del lk, lp, ln, lw
+    return cos
+
+
+def profile_moe_engine(name, eng, prompt, n_moe):
+    """Profile one 256-token prefill and one decode step of ``eng`` (slot
+    0, the other slots idle) and log their busy share, launches, host
+    syncs (one per MoE layer expected, beside the engine's own reads) and
+    the kernel time of the experts' products against the attention
+    kernels."""
+    B = eng.max_slots
+    tokens = np.zeros((B, len(prompt)), np.int32)
+    positions = np.full((B, len(prompt)), -1, np.int32)
+    tokens[0], positions[0] = prompt, np.arange(len(prompt))
+    td = np.zeros((B, 1), np.int32)
+    pd = np.full((B, 1), -1, np.int32)
+    td[0, 0], pd[0, 0] = prompt[-1], len(prompt)
+    for label, fn in ((f"prefill T={len(prompt)}",
+                       lambda: eng.prefill(tokens, positions)),
+                      ("decode step", lambda: eng.decode(td, pd))):
+        reset_launches()
+        prof = profile_moe_step(fn)
+        port = {k: v for k, v in read_launches().items() if v}
+        if prof is None:
+            log(f"[moe] {name} {label}: profiler reported no device time "
+                f"(not measured)")
+            continue
+        k = prof["kernel_s"]
+        log(f"[moe] {name} {label}: wall {prof['wall_s']:.4f} s, kernels "
+            f"{k:.4f} s, busy share {k / prof['wall_s']:.3f}; kernel "
+            f"launches {prof['launches']} (port kernels {json.dumps(port)});"
+            f" host syncs {prof['syncs']} ({n_moe} MoE layers), memcpy "
+            f"calls {prof['memcpys']}; moe_ffn {prof['moe_ffn_s']:.4f} s, of "
+            f"it grouped_ffn (expert GEMMs) {prof['grouped_ffn_s']:.4f} s "
+            f"({prof['grouped_ffn_s'] / k:.3f} of kernel time); attention "
+            f"kernels {prof['attention_s']:.5f} s "
+            f"({prof['attention_s'] / k:.4f})")
+    eng.reset_slot(0)
+
+
+# ---------------------------------------------------------------------------
 
 PHASE_LIMIT_S = 450              # a phase that runs longer is hung
 
@@ -2073,7 +2520,8 @@ def main() -> int:
                       (4, phase_tiny_identity),
                       (5, lambda: phase_paged_full_width(state)),
                       (7, lambda: phase_fleet(state)),
-                      (6, ssm), (8, phase_dense_configs), (9, hybrid)):
+                      (6, ssm), (8, phase_dense_configs), (9, hybrid),
+                      (10, phase_moe_configs)):
             t0 = time.perf_counter()
             signal.alarm(PHASE_LIMIT_S)
             out = fn()

@@ -6,8 +6,8 @@ flat with ``||``-joined keys (a ``repro/checkpoint/io.py`` ``.npz``
 loaded with ``numpy.load``).  The output is the nested dict the port's
 ``models/model.py`` consumes: same keys, the stacked leading layer axis
 kept.  Leaves the reference keeps in float32 whatever the model dtype
-(the Mamba2 ``A_log``, ``D`` and ``dt_bias``) stay float32 when
-``dtype=`` is given.
+(the Mamba2 ``A_log``, ``D`` and ``dt_bias``, and the MoE ``router``)
+stay float32 when ``dtype=`` is given.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import torch
 from repro_torch.runtime import resolve_device
 
 SEP = "||"   # key separator of repro/checkpoint/io.py
-F32_LEAVES = ("A_log", "D", "dt_bias")   # layers.init_mamba's f32 leaves
+# the f32 leaves of layers.init_mamba and layers.init_moe
+F32_LEAVES = ("A_log", "D", "dt_bias", "router")
 
 
 def _unflatten(flat) -> dict:

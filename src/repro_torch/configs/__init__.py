@@ -1,9 +1,10 @@
 """Config registry: importing this package registers the paper's own
 SLM/LLM pair and the reference's dense configs (``glm4-9b``,
 ``llama3.2-1b``, ``qwen2-1.5b``, ``qwen1.5-110b``), ``mamba2-2.7b`` (ssm
-family) and ``zamba2-2.7b`` (hybrid family), each a copy of the
-reference's file.  The moe, vlm and audio configs wait for the slices
-that port their families."""
+family), ``zamba2-2.7b`` (hybrid family), ``qwen3-moe-235b-a22b`` and
+``llama4-maverick-400b-a17b`` (moe family), each a copy of the
+reference's file.  The vlm and audio configs wait for the slices that
+port their families."""
 from repro_torch.configs.base import (  # noqa: F401
     INPUT_SHAPES,
     InputShape,
@@ -20,3 +21,7 @@ from repro_torch.configs.qwen2_1_5b import QWEN2_1_5B  # noqa: F401
 from repro_torch.configs.qwen1_5_110b import QWEN15_110B  # noqa: F401
 from repro_torch.configs.mamba2_2_7b import MAMBA2_2_7B  # noqa: F401
 from repro_torch.configs.zamba2_2_7b import ZAMBA2_2_7B  # noqa: F401
+from repro_torch.configs.qwen3_moe_235b_a22b import (  # noqa: F401
+    QWEN3_MOE_235B)
+from repro_torch.configs.llama4_maverick_400b_a17b import (  # noqa: F401
+    LLAMA4_MAVERICK)

@@ -1,6 +1,6 @@
-"""Neural building blocks of the dense decoder and of the Mamba2 (SSD)
-block (port of ``repro/models/layers.py``: the dense family with dense
-and paged KV caches, and the ssm family).
+"""Neural building blocks of the dense decoder, of the MoE FFN and of the
+Mamba2 (SSD) block (port of ``repro/models/layers.py``: the dense and moe
+families with dense and paged KV caches, and the ssm family).
 
 Plain functions over explicit parameter dicts of tensors, as in the
 reference.  Attention exists in three implementations, selected by
@@ -78,8 +78,9 @@ def apply_rope(x, positions, theta: float):
     hd = x.shape[-1]
     half = hd // 2
     exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=x.device), exps)
+    # a Python-scalar base: a tensor made from theta on the card would be
+    # a host-to-device copy, and a host sync, in every call
+    inv_freq = 1.0 / torch.pow(theta, exps)
     ang = positions.float()[..., None] * inv_freq          # (B, T, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -451,11 +452,81 @@ def attn_block(p, x, positions, cfg, cache=None, *, kv_pos=None, causal=True,
 
 
 # ---------------------------------------------------------------------------
-# FFN: dense SwiGLU
+# FFN: dense SwiGLU and MoE
 # ---------------------------------------------------------------------------
 
 def mlp(p, x):
     return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def moe_route(router, xf, top_k: int):
+    """Token-choice routing: f32 router logits, softmax, top-k, the top-k
+    weights renormalised.  Returns (probs (N, E), top_p (N, k), top_e (N,
+    k)), experts in descending probability as ``lax.top_k`` gives them."""
+    probs = torch.softmax(xf.float() @ router, dim=-1)
+    top_p, top_e = torch.topk(probs, top_k, dim=-1)
+    return probs, top_p / top_p.sum(-1, keepdim=True), top_e
+
+
+def grouped_ffn(p, xs, group_sizes: list[int]):
+    """The experts' SwiGLU over rows sorted by expert (the reference's
+    three ``lax.ragged_dot`` products): expert ``e`` takes the next
+    ``group_sizes[e]`` rows; experts with no row are skipped."""
+    ys = torch.empty_like(xs)
+    start = 0
+    for e, n in enumerate(group_sizes):
+        if n:
+            seg = xs[start:start + n]
+            h = silu(seg @ p["w_gate"][e]) * (seg @ p["w_up"][e])
+            torch.matmul(h, p["w_down"][e], out=ys[start:start + n])
+            start += n
+    return ys
+
+
+def moe_ffn(p, x, *, top_k: int):
+    """Token-choice top-k MoE (``repro/models/layers.py:577``): every
+    assignment is computed (no capacity, nothing dropped), so a padding
+    row of a bucketed feed cannot change a real row.
+
+    The assignments are sorted by expert with a stable sort (as
+    ``jnp.argsort``), so each expert's rows are one contiguous segment;
+    the group sizes are read to the host once per call (one sync) for
+    :func:`grouped_ffn`.  The routing weights are cast to the products'
+    dtype before the multiply.  The reference's scatter-add adds a
+    token's k weighted rows into zeros in sorted order, i.e. by ascending
+    expert id; here they are gathered back and added in that order, so
+    the sum is the same and deterministic on the card (``index_add_``
+    there adds with atomics, in no fixed order).
+    x: (B, T, d).  Returns (out (B, T, d), the Switch load-balance aux
+    loss, f32)."""
+    B, T, d = x.shape
+    E = p["router"].shape[1]
+    xf = x.reshape(-1, d)
+    N = xf.shape[0]
+    probs, top_p, top_e = moe_route(p["router"], xf, top_k)
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    # (bincount would read the largest id to the host: a second sync)
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    ys = grouped_ffn(p, xf[order // top_k], counts.tolist())
+    w = top_p.reshape(-1)[order].to(ys.dtype)
+    contrib = ys * w[:, None]
+    # sorted position of each (token, choice); a token's experts are
+    # distinct, so its positions in ascending order are its experts in
+    # ascending id
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device)
+    rank = rank.view(N, top_k).sort(dim=1).values
+    out = torch.zeros_like(xf)
+    for j in range(top_k):
+        out = out + contrib[rank[:, j]]
+    if "shared" in p:
+        out = out + mlp(p["shared"], xf)
+    # Switch-style load-balance auxiliary loss
+    frac = counts.float() / flat_e.numel()
+    aux = E * torch.sum(frac * probs.mean(0))
+    return out.reshape(B, T, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Model assembly for the dense, ssm and hybrid families (port of
+"""Model assembly for the dense, moe, ssm and hybrid families (port of
 ``repro/models/model.py``).
 
 Parameters are nested dicts of tensors with the reference's structure and
@@ -12,23 +12,25 @@ Conventions (as in the reference):
 * ``forward(...)`` returns ``(logits, cache, importance, aux_loss)``;
 * ``window`` > 0 enables sliding-window attention over a circular cache.
 
-Ported so far: ``family="dense"`` with a dense or a paged cache,
-``family="ssm"`` (Mamba2, per-layer conv windows and SSM states; nothing
-to page) and ``family="hybrid"`` (zamba2: rounds of Mamba2 layers, each
-followed by one weight-shared MHA block with its own KV cache; dense
-cache only).  The other families raise ``NotImplementedError``.
+Ported so far: ``family="dense"`` and ``family="moe"`` (every layer's FFN
+an MoE, or dense and MoE layers interleaved in rounds) with a dense or a
+paged cache, ``family="ssm"`` (Mamba2, per-layer conv windows and SSM
+states; nothing to page) and ``family="hybrid"`` (zamba2: rounds of
+Mamba2 layers, each followed by one weight-shared MHA block with its own
+KV cache; dense cache only).  The other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.models import layers as L
 from repro_torch.runtime import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def torch_dtype(cfg) -> torch.dtype:
@@ -56,9 +58,18 @@ def init_params(cfg, seed: int = 0, *, device=None):
     dt = torch_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def normal(*shape, scale):
+    def normal(*shape, scale, dtype=dt):
         x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return x.mul_(scale).to(dt)
+        return x.mul_(scale).to(dtype)
+
+    def experts(*lead, rows, cols, scale):
+        # drawn one (layer, expert) matrix at a time: a whole expert leaf
+        # drawn in f32 would not fit the card beside the bf16 weights
+        out = torch.empty((*lead, cfg.n_experts, rows, cols), dtype=dt,
+                          device=dev)
+        for idx in np.ndindex(*lead, cfg.n_experts):
+            out[idx] = normal(rows, cols, scale=scale)
+        return out
 
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=dev)
@@ -85,9 +96,31 @@ def init_params(cfg, seed: int = 0, *, device=None):
             "out_proj": normal(*lead, di, d, scale=1.0 / math.sqrt(di)),
         }
 
-    def dense_layer(*lead, mha=False):
+    def mlp(*lead, dff):
+        return {
+            "w_gate": normal(*lead, d, dff, scale=sd),
+            "w_up": normal(*lead, d, dff, scale=sd),
+            "w_down": normal(*lead, dff, d, scale=1.0 / math.sqrt(dff)),
+        }
+
+    def moe(*lead):
+        # init_moe: the router is f32 whatever the model dtype
+        dff = cfg.d_ff
+        p = {
+            "router": normal(*lead, d, cfg.n_experts, scale=sd,
+                             dtype=torch.float32),
+            "w_gate": experts(*lead, rows=d, cols=dff, scale=sd),
+            "w_up": experts(*lead, rows=d, cols=dff, scale=sd),
+            "w_down": experts(*lead, rows=dff, cols=d,
+                              scale=1.0 / math.sqrt(dff)),
+        }
+        if cfg.n_shared_experts:
+            p["shared"] = mlp(*lead, dff=cfg.n_shared_experts * dff)
+        return p
+
+    def dense_layer(*lead, mha=False, ffn="mlp", dff=None):
         # _init_dense_layer: mha=True gives n_kv = n_heads
-        nh, hd, dff = cfg.n_heads, cfg.head_dim, cfg.d_ff
+        nh, hd = cfg.n_heads, cfg.head_dim
         nkv = nh if mha else cfg.n_kv_heads
         attn = {
             "wq": normal(*lead, d, nh * hd, scale=sd),
@@ -99,16 +132,12 @@ def init_params(cfg, seed: int = 0, *, device=None):
             for name, width in (("bq", nh), ("bk", nkv), ("bv", nkv)):
                 attn[name] = torch.zeros((*lead, width * hd), dtype=dt,
                                          device=dev)
-        return {
-            "ln1": ones(*lead, d),
-            "ln2": ones(*lead, d),
-            "attn": attn,
-            "mlp": {
-                "w_gate": normal(*lead, d, dff, scale=sd),
-                "w_up": normal(*lead, d, dff, scale=sd),
-                "w_down": normal(*lead, dff, d, scale=1.0 / math.sqrt(dff)),
-            },
-        }
+        p = {"ln1": ones(*lead, d), "ln2": ones(*lead, d), "attn": attn}
+        if ffn == "mlp":
+            p["mlp"] = mlp(*lead, dff=dff or cfg.d_ff)
+        else:
+            p["moe"] = moe(*lead)
+        return p
 
     if cfg.family == "ssm":
         params["layers"] = mamba(cfg.n_layers)
@@ -116,6 +145,12 @@ def init_params(cfg, seed: int = 0, *, device=None):
         params["mamba_rounds"] = mamba(cfg.n_layers // cfg.attn_every,
                                        cfg.attn_every)
         params["shared_attn"] = dense_layer(mha=True)
+    elif cfg.family == "moe" and cfg.moe_every == 1:
+        params["layers"] = dense_layer(cfg.n_layers, ffn="moe")
+    elif cfg.family == "moe":
+        rounds = cfg.n_layers // cfg.moe_every
+        params["dense_layers"] = dense_layer(rounds, dff=cfg.d_ff_dense)
+        params["moe_layers"] = dense_layer(rounds, ffn="moe")
     else:
         params["layers"] = dense_layer(cfg.n_layers)
     return params
@@ -133,7 +168,9 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
 
     ``cache_impl`` (default ``cfg.cache_impl``) selects the layout:
 
-    * ``"dense"`` -- one contiguous (batch, s_max) buffer per layer; for
+    * ``"dense"`` -- one contiguous (batch, s_max) buffer per layer (for
+      ``family="moe"`` with ``moe_every`` > 1 two stacks, ``{"dense",
+      "moe"}``, one buffer per round each, as the reference); for
       ``family="ssm"`` each layer's conv window and f32 SSM state instead
       (fixed size: ``s_max`` is not used); for ``family="hybrid"``
       ``{"mamba": ..., "attn": ...}``: the Mamba2 states with the two
@@ -142,11 +179,13 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
     * ``"paged"`` -- a shared pool of ``pool_blocks`` blocks of
       ``block_size`` tokens (default ``cfg.kv_block_size``) per layer,
       plus one (batch, s_max / block_size) int32 ``block_tables`` map
-      shared by every layer (-1 = unmapped).  ``pool_blocks`` defaults
-      to dense capacity; serving engines pass a smaller pool and page
-      slots on demand (``serving/engine.BlockAllocator``).  Only
+      per stack, shared by the stack's layers (-1 = unmapped).
+      ``pool_blocks`` defaults to dense capacity; serving engines pass a
+      smaller pool and page slots on demand
+      (``serving/engine.BlockAllocator``).  Only
       kv_stack families page: SSM/conv states have nothing to page.
     """
+    _check_ported(cfg)
     impl = cache_impl or getattr(cfg, "cache_impl", "dense")
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
@@ -157,29 +196,32 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
             raise ValueError(
                 f"cache_impl='paged' supports dense/moe families (pure "
                 f"kv_stack caches); got {cfg.family!r}")
-        _check_ported(cfg)
         if s_max % bs:
             raise ValueError(f"s_max {s_max} not divisible by "
                              f"kv block size {bs}")
         max_bps = s_max // bs                 # blocks per slot
         nb = pool_blocks if pool_blocks is not None else batch * max_bps
-        return {"layers": {
-            "k": torch.zeros((n, nb, bs, nkv, hd), dtype=dt, device=dev),
-            "v": torch.zeros((n, nb, bs, nkv, hd), dtype=dt, device=dev),
-            "pos": torch.full((n, nb, bs), -1, dtype=torch.int32,
-                              device=dev),
-            "block_tables": torch.full((batch, max_bps), -1,
-                                       dtype=torch.int32, device=dev),
-        }}
-    _check_ported(cfg)
 
-    def kv_stack(n_stack):
-        shape = (n_stack, batch, s_max, nkv, hd)
-        return {
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev),
-            "pos": torch.full(shape[:3], -1, dtype=torch.int32, device=dev),
-        }
+        def kv_stack(n_stack):
+            return {
+                "k": torch.zeros((n_stack, nb, bs, nkv, hd), dtype=dt,
+                                 device=dev),
+                "v": torch.zeros((n_stack, nb, bs, nkv, hd), dtype=dt,
+                                 device=dev),
+                "pos": torch.full((n_stack, nb, bs), -1, dtype=torch.int32,
+                                  device=dev),
+                "block_tables": torch.full((batch, max_bps), -1,
+                                           dtype=torch.int32, device=dev),
+            }
+    else:
+        def kv_stack(n_stack):
+            shape = (n_stack, batch, s_max, nkv, hd)
+            return {
+                "k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "pos": torch.full(shape[:3], -1, dtype=torch.int32,
+                                  device=dev),
+            }
 
     if cfg.family == "ssm":
         # fixed-size conv windows and SSM states: s_max is not used
@@ -191,6 +233,9 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
                                             layers=(rounds, cfg.attn_every),
                                             device=dev),
                 "attn": kv_stack(rounds)}
+    if cfg.family == "moe" and cfg.moe_every > 1:
+        rounds = n // cfg.moe_every
+        return {"dense": kv_stack(rounds), "moe": kv_stack(rounds)}
     return {"layers": kv_stack(n)}
 
 
@@ -280,7 +325,9 @@ def swap_in_blocks(cache, blocks, payload):
 # ---------------------------------------------------------------------------
 
 def _layer(cfg, p, h, pos, cache, *, window=0, ret_imp=False,
-           write_index=None, mha=False):
+           write_index=None, ffn="mlp", mha=False):
+    """One decoder layer; returns (h, cache, importance, aux loss: None
+    for a dense FFN)."""
     a_in = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     a, nc, imp = L.attn_block(
         p["attn"], a_in, pos, cfg, cache, window=window,
@@ -288,7 +335,10 @@ def _layer(cfg, p, h, pos, cache, *, window=0, ret_imp=False,
         n_kv=cfg.n_heads if mha else cfg.n_kv_heads, write_index=write_index)
     h = h + a
     f_in = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + L.mlp(p["mlp"], f_in), nc, imp
+    if ffn == "mlp":
+        return h + L.mlp(p["mlp"], f_in), nc, imp, None
+    f, aux = L.moe_ffn(p["moe"], f_in, top_k=cfg.top_k)
+    return h + f, nc, imp, aux
 
 
 def _write_index(positions, stack):
@@ -300,19 +350,49 @@ def _write_index(positions, stack):
     return L.cache_write_index(positions, stack["k"].shape[2])
 
 
-def _dense_stack(cfg, params, h, positions, cache, *, window, ret_imp):
-    """The dense decoder stack over a dense or paged KV cache."""
+def _uniform_stack(cfg, params, h, positions, cache, *, window, ret_imp,
+                   ffn):
+    """The decoder stack over a dense or paged KV cache, every layer's FFN
+    dense (``ffn="mlp"``) or MoE.  Returns (h, importance, summed aux)."""
     windex = (_write_index(positions, cache["layers"])
               if cache is not None else None)
-    imps = []
+    imps, aux = [], torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         lc = layer_slice(cache["layers"], i) if cache is not None else None
-        h, _, imp = _layer(cfg, layer_slice(params["layers"], i), h,
-                           positions, lc, window=window, ret_imp=ret_imp,
-                           write_index=windex)
+        h, _, imp, a = _layer(cfg, layer_slice(params["layers"], i), h,
+                              positions, lc, window=window, ret_imp=ret_imp,
+                              write_index=windex, ffn=ffn)
+        if a is not None:
+            aux = aux + a
         if ret_imp:
             imps.append(imp)
-    return h, torch.stack(imps).mean(0) if ret_imp else None
+    return h, torch.stack(imps).mean(0) if ret_imp else None, aux
+
+
+def _moe_interleaved(cfg, params, h, positions, cache, *, window, ret_imp):
+    """``moe_every`` > 1: each round runs one dense layer (``dense_layers``,
+    its own KV stack ``cache["dense"]``), then one MoE layer
+    (``moe_layers``, ``cache["moe"]``).  A round's importance is the mean
+    of its two layers'; the result is the mean over rounds."""
+    rounds = cfg.n_layers // cfg.moe_every
+    windex = ({k: _write_index(positions, cache[k]) for k in ("dense", "moe")}
+              if cache is not None else {"dense": None, "moe": None})
+    imps, aux = [], torch.zeros((), dtype=torch.float32, device=h.device)
+    for r in range(rounds):
+        rimps = []
+        for stack, ffn in (("dense", "mlp"), ("moe", "moe")):
+            lc = (layer_slice(cache[stack], r) if cache is not None
+                  else None)
+            h, _, imp, a = _layer(cfg, layer_slice(params[stack + "_layers"],
+                                                   r), h, positions, lc,
+                                  window=window, ret_imp=ret_imp,
+                                  write_index=windex[stack], ffn=ffn)
+            if a is not None:
+                aux = aux + a
+            rimps.append(imp)
+        if ret_imp:
+            imps.append((rimps[0] + rimps[1]) / 2)
+    return h, torch.stack(imps).mean(0) if ret_imp else None, aux
 
 
 def _ssm_backbone(cfg, params, h, cache, *, ret_imp):
@@ -352,8 +432,9 @@ def _hybrid_backbone(cfg, params, h, positions, cache, *, window, ret_imp):
             if ret_imp:
                 imps_m.append(imp)
         ac = layer_slice(cache["attn"], r) if cache is not None else None
-        h, _, imp_a = _layer(cfg, shared, h, positions, ac, window=window,
-                             ret_imp=ret_imp, write_index=windex, mha=True)
+        h, _, imp_a, _ = _layer(cfg, shared, h, positions, ac,
+                                window=window, ret_imp=ret_imp,
+                                write_index=windex, mha=True)
         if ret_imp:
             imps.append((torch.stack(imps_m).mean(0) + imp_a) / 2)
     return h, torch.stack(imps).mean(0) if ret_imp else None
@@ -364,7 +445,8 @@ def forward(cfg, params, tokens, positions, cache=None, *, window: int = 0,
     """tokens: (B, T) int; positions: (B, T) int.
 
     Returns (logits (B, T, V), cache, importance or None, aux_loss):
-    importance is (B, S) over the attention keys for the dense family,
+    importance is (B, S) over the attention keys for the dense and moe
+    families,
     (B, T) per token for ssm and hybrid (the hybrid's attention keys are
     its tokens: without a cache, as in the reference, whose sum needs S
     = T).  ``cache`` is updated in place and returned (None without a
@@ -372,19 +454,25 @@ def forward(cfg, params, tokens, positions, cache=None, *, window: int = 0,
     """
     _check_ported(cfg)
     h = params["embed"][tokens]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
         h, imp = _ssm_backbone(cfg, params, h, cache,
                                ret_imp=return_importance)
     elif cfg.family == "hybrid":
         h, imp = _hybrid_backbone(cfg, params, h, positions, cache,
                                   window=window, ret_imp=return_importance)
+    elif cfg.family == "moe" and cfg.moe_every > 1:
+        h, imp, aux = _moe_interleaved(cfg, params, h, positions, cache,
+                                       window=window,
+                                       ret_imp=return_importance)
     else:
-        h, imp = _dense_stack(cfg, params, h, positions, cache,
-                              window=window, ret_imp=return_importance)
+        h, imp, aux = _uniform_stack(
+            cfg, params, h, positions, cache, window=window,
+            ret_imp=return_importance,
+            ffn="moe" if cfg.family == "moe" else "mlp")
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     unemb = (params["embed"].T if cfg.tie_embeddings else params["unembed"])
     logits = h @ unemb
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return logits, cache, imp, aux
 
 

@@ -135,9 +135,9 @@ def _make_device_step(cfg):
         windex = L.cache_write_index(pos, cache["layers"]["k"].shape[2])
         imps, h_layers = [], []
         for i in range(cfg.n_layers):
-            h, _, imp = M._layer(cfg, M.layer_slice(params["layers"], i), h,
-                                 pos, M.layer_slice(cache["layers"], i),
-                                 ret_imp=True, write_index=windex)
+            h, _, imp, _ = M._layer(cfg, M.layer_slice(params["layers"], i),
+                                    h, pos, M.layer_slice(cache["layers"], i),
+                                    ret_imp=True, write_index=windex)
             imps.append(imp)
             h_layers.append(h[:, -1])
         hl = L.rms_norm(torch.stack(h_layers), params["final_norm"],

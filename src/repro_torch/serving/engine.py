@@ -495,6 +495,26 @@ class BlockAllocator:
 
 
 
+def _cache_tensors(cache):
+    """Every tensor of a cache tree (all stacks), in tree order."""
+    for v in cache.values():
+        if isinstance(v, dict):
+            yield from _cache_tensors(v)
+        else:
+            yield v
+
+
+def _reset_cache_slot(cache, slot: int):
+    """Invalidate ``slot`` in every dense KV stack of the cache, in place:
+    its positions -> -1 (stale K/V at an invalid position is never
+    attended to)."""
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            _reset_cache_slot(v, slot)
+        elif k == "pos":                      # (..., B, S)
+            v[..., slot, :] = -1
+
+
 def _reset_paged_blocks(cache, blocks):
     """Invalidate the pool positions of freed blocks in place.  Freed K/V
     stays stale -- a block is only ever read through a table entry, and
@@ -711,7 +731,7 @@ class CloudEngine:
             self._tables_dirty = True
             self._sync_tables()
             return
-        self.cache["layers"]["pos"][:, slot, :] = -1
+        _reset_cache_slot(self.cache, slot)
 
     # -- paged block management ----------------------------------------
     def _invalidate_blocks(self, bids):
@@ -862,10 +882,10 @@ class CloudEngine:
         return len(bids) * a.block_size
 
     def kv_cache_bytes(self) -> int:
-        """Total bytes backing the KV cache (dense buffers, or the whole
-        block pool plus the block table)."""
+        """Total bytes backing the KV cache, every stack (dense buffers, or
+        the whole block pool plus each stack's block table)."""
         return int(sum(t.numel() * t.element_size()
-                       for t in self.cache["layers"].values()))
+                       for t in _cache_tensors(self.cache)))
 
     def block_bytes(self) -> int:
         """Bytes one pool block occupies across all layers/stacks."""

@@ -178,9 +178,19 @@ def test_paged_init_cache_guards():
     with pytest.raises(ValueError):
         M.init_cache(slm.replace(family="ssm", ssm_state=16), 2, 256,
                      cache_impl="paged", device="cpu")
-    with pytest.raises(NotImplementedError):
-        M.init_cache(slm.replace(family="moe"), 2, 256, cache_impl="paged",
-                     device="cpu")
+    # the moe family pages each of its kv stacks, every stack with its
+    # own block table
+    moe = M.init_cache(slm.replace(family="moe", moe_every=2, n_experts=4),
+                       2, 64, cache_impl="paged", block_size=16,
+                       pool_blocks=5, device="cpu")
+    assert set(moe) == {"dense", "moe"}
+    for st in moe.values():
+        assert st["k"].shape == (slm.n_layers // 2, 5, 16, slm.n_kv_heads,
+                                 slm.head_dim)
+        assert st["block_tables"].shape == (2, 4)
+    assert moe["dense"]["block_tables"] is not moe["moe"]["block_tables"]
+    assert [id(st) for st in M.paged_stacks(moe)] == [id(moe["dense"]),
+                                                       id(moe["moe"])]
     c = M.init_cache(slm, 2, 64, cache_impl="paged", block_size=16,
                      pool_blocks=5, device="cpu")["layers"]
     assert c["k"].shape == (slm.n_layers, 5, 16, slm.n_kv_heads,

@@ -430,7 +430,7 @@ def test_bridge_keeps_float32_leaves():
     assert got["embed"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_unported_families_raise(family):
     cfg = get_config("mamba2-2.7b").reduced().replace(family=family)
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -1,6 +1,6 @@
 """Run the port's CUDA kernels on the CPU, for logic checks without a card.
 
-    PYTHONPATH=src python tools/cuda_emu/emulate.py [attn_importance] [ssd_scan] [partial_prefill] [decode_gqa]
+    PYTHONPATH=src python tools/cuda_emu/emulate.py [attn_importance] [ssd_scan] [partial_prefill] [decode_gqa] [paged]
 
 Each kernel source under ``src/repro_torch/kernels/csrc`` is rewritten for
 the stub headers beside this file (the kernels' inline-PTX helpers become
@@ -14,7 +14,11 @@ second call must give the same bits.  Every CUDA thread is a
 ``partial_prefill`` and ``decode_gqa`` at hd 64 / 128 with g <= 8 run
 kernels already proven on the card, as a check of the emulation itself;
 their hd 80 and g = 6 / 16 cases, and ``attn_importance``'s hd 80 cases,
-check the shapes zamba2 and the dense configs add.
+check the shapes zamba2 and the dense configs add; their g = 5 (nh 40 /
+nkv 8, llama4-maverick) and g = 16 at nkv 4 (qwen3-moe) cases, dense and
+through the paged instances (``partial_prefill_paged``, ``decode_gqa_paged``),
+the shapes the MoE configs add: at C = 8 the 40 packed rows of a g = 5
+group leave the last 16-row tile half empty.
 """
 from __future__ import annotations
 
@@ -228,9 +232,14 @@ def check_partial_prefill() -> bool:
     # (B, C, S, nh, nkv, hd, splits): hd 64 is the card-proven case; hd 80
     # (zamba2) as one row tile, as 80 rows over two tiles with a split,
     # and as a full 64-row tile; g = 6 (qwen2-1.5b) and g = 16 (glm4-9b)
+    # g = 5 (llama4-maverick) and g = 16 over nkv 4 (qwen3-moe) at C = 8
+    # (40 rows: a half-empty last tile) and C = 64
     cases = [(2, 16, 128, 4, 2, 64, 1), (2, 16, 160, 4, 4, 80, 1),
              (1, 40, 200, 2, 2, 80, 2), (1, 64, 128, 4, 4, 80, 1),
-             (1, 8, 128, 12, 2, 128, 1), (1, 4, 160, 32, 2, 128, 2)]
+             (1, 8, 128, 12, 2, 128, 1), (1, 4, 160, 32, 2, 128, 2),
+             (2, 8, 128, 40, 8, 128, 1), (1, 8, 160, 40, 8, 128, 2),
+             (1, 64, 96, 10, 2, 128, 1), (1, 8, 128, 64, 4, 128, 1),
+             (1, 64, 96, 64, 4, 128, 2)]
     ok = True
     for B, C, S, nh, nkv, hd, splits in cases:
         rng = np.random.default_rng(0)
@@ -264,11 +273,15 @@ def check_decode_gqa() -> bool:
     fn = load("decode_gqa").decode_gqa_launch
     # (B, S, nh, nkv, hd, window, splits, idle slot 1): hd 128 g 4 is the
     # card-proven case; hd 80 (zamba2) one split, three splits and a
-    # window; g = 6 (qwen2-1.5b) and g = 16 (glm4-9b)
+    # window; g = 6 (qwen2-1.5b) and g = 16 (glm4-9b); g = 5
+    # (llama4-maverick, nh 40 / nkv 8) and g = 16 over nkv 4 (qwen3-moe)
     cases = [(2, 200, 8, 2, 128, 0, 2, False), (2, 200, 4, 4, 80, 0, 1, True),
              (2, 300, 4, 4, 80, 0, 3, False), (2, 256, 2, 2, 80, 64, 2, False),
              (1, 300, 12, 2, 128, 0, 2, False),
-             (1, 300, 32, 2, 128, 0, 1, False)]
+             (1, 300, 32, 2, 128, 0, 1, False),
+             (2, 200, 40, 8, 128, 0, 2, True),
+             (1, 300, 40, 8, 128, 0, 1, False),
+             (1, 200, 64, 4, 128, 0, 3, False)]
     ok = True
     for B, S, nh, nkv, hd, window, splits, idle in cases:
         rng = np.random.default_rng(1)
@@ -300,10 +313,84 @@ def check_decode_gqa() -> bool:
     return ok
 
 
+def _paged_inputs(B, C, nkv, hd, bs, mbps, fill, seed):
+    """A pool of 2 * B * mbps blocks of ``bs`` rows; each slot's table maps
+    a ragged run of a random permutation of them (-1 tail) holding
+    ``fill`` tokens, and its C queries sit at the tail (C = 1: decode)."""
+    rng = np.random.default_rng(seed)
+    nb = 2 * B * mbps
+    pos = np.full((nb, bs), -1, np.int32)
+    bt = np.full((B, mbps), -1, np.int32)
+    qp = np.full((B, C), -1, np.int32)
+    perm = iter(rng.permutation(nb))
+    for b in range(B):
+        n = int(rng.integers(fill // 2, fill))
+        for j in range(-(-n // bs)):
+            blk = next(perm)
+            bt[b, j] = blk
+            k = min(bs, n - j * bs)
+            pos[blk, :k] = j * bs + np.arange(k)
+        nq = C if C == 1 else int(rng.integers(1, C + 1))
+        qp[b, :nq] = n - nq + np.arange(nq)
+    return nb, torch.from_numpy(pos), torch.from_numpy(bt), \
+        torch.from_numpy(qp)
+
+
+def check_paged() -> bool:
+    """The paged instances of both kernels at the MoE configs' groups:
+    (B, C, nh, nkv, hd, block size, max_bps, fill, block_kv, kv_splits);
+    C = 1 is decode."""
+    fns = {"prefill": load("partial_prefill").partial_prefill_paged_launch,
+           "decode": load("decode_gqa").decode_gqa_paged_launch}
+    cases = [(2, 8, 40, 8, 128, 16, 8, 120, 32, 2),
+             (1, 64, 10, 2, 128, 16, 8, 120, None, 1),
+             (1, 8, 64, 4, 128, 16, 8, 120, 64, 1),
+             (2, 1, 40, 8, 128, 16, 8, 120, 32, 3),
+             (1, 1, 64, 4, 128, 16, 8, 120, None, 1)]
+    ok = True
+    for B, C, nh, nkv, hd, bs, mbps, fill, blkv, ksplits in cases:
+        nb, pos, bt, qp = _paged_inputs(B, C, nkv, hd, bs, mbps, fill, 2)
+        fuse, splits, spb = PG.fused_layout(mbps, bs, blkv, ksplits)
+        kind = "decode" if C == 1 else "prefill"
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(2)
+            q, kpool, vpool = (
+                torch.randn(*s, generator=g).to(dtype)
+                for s in ((B, C, nh, hd), (nb, bs, nkv, hd),
+                          (nb, bs, nkv, hd)))
+            ws = _workspace(B * nkv, splits, nh // nkv * C, hd)
+            if kind == "decode":
+                q, qpos = q[:, 0].contiguous(), qp[:, 0].contiguous()
+                shape = (B, nh, nkv, hd, bs)
+            else:
+                qpos, shape = qp, (B, C, nh, nkv, hd, bs)
+            out = torch.full_like(q, float("nan"))
+            _call(fns[kind], q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+                  qpos.data_ptr(), pos.data_ptr(), bt.data_ptr(),
+                  out.data_ptr(), *(_ptr(t) for t in ws), *shape, mbps,
+                  splits, spb * fuse, 0, DTYPE_CODES[dtype], None)
+            if kind == "decode":
+                ref = DG.decode_attention_paged_ref(
+                    q, kpool, vpool, qpos, pos, bt, block_kv=blkv,
+                    kv_splits=ksplits)
+            else:
+                ref = PP.partial_prefill_paged_ref(
+                    q, kpool, vpool, qpos, pos, bt, block_kv=blkv,
+                    kv_splits=ksplits)
+            e = float((out.float() - ref.float()).abs().max())
+            good = e <= TOL[dtype] and (kind == "decode"
+                                        or bool((out[qpos < 0] == 0).all()))
+            ok &= _report(f"{kind}_paged {B, C, nh, nkv, hd} block {bs} "
+                          f"splits={splits} fuse={fuse} {dtype}", {"out": e},
+                          good)
+    return ok
+
+
 CHECKS = {"attn_importance": check_attn_importance,
           "ssd_scan": check_ssd_scan,
           "partial_prefill": check_partial_prefill,
-          "decode_gqa": check_decode_gqa}
+          "decode_gqa": check_decode_gqa,
+          "paged": check_paged}
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
