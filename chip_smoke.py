@@ -73,6 +73,22 @@ streams through the kernels and the plain path, dense and paged.  Phase 2
 holds the attention kernels at the shapes phase 10 launches (g = 16 over
 4 KV heads, g = 5 over 8); phase 4 also serves the tiny pair with its LLM
 made MoE, dense and paged, through the kernels and the plain paths.
+Phase 11 runs the reference's vlm and audio configs at published widths
+in bf16 -- whisper-medium whole (24 encoder and 24 decoder layers),
+llama-3.2-vision-90b at two of its 20 rounds (8 self-attention and 2
+gated cross-attention layers; the gates, zero at init, set to 0.5) --
+with stub audio frames and image embeds from a seeded generator, through
+the model-level steps: a batched prefill with the aux inputs (filling
+the cross cache), 32 greedy decode steps, and an 8-token verify chunk
+that must agree with the full forward and leave the cross cache alone,
+with exact launch counts (one attention kernel per causal self-attention
+layer; the encoder and the cross-attention are plain); prefill logits
+within cosine 0.999 of the plain path where the plain floor clears it;
+``run_cloud_centric`` on a dense engine (whose steps never fill the cross
+cache, as the reference serves these families); one profiled prefill and
+decode step; and identical float32 greedy streams through the kernels and
+the plain path at 2 + 2 layers (whisper) and one round (vision).  Phase 2
+holds whisper's g = 1 over 16 heads of 64 at every shape it launches.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -344,6 +360,12 @@ def _library_call(name, a, window=0):
 # (llama4-maverick, nh 40; its g C packed rows fill no whole number of
 # 16-row tiles at C = 8): decode over the 512-slot cache, each prefill
 # bucket from position 0, and a C = 8 verify chunk over a cached prefix.
+# Then phase 11's: whisper-medium's MHA decoder (g = 1 over 16 heads of
+# 64) at the engine's decode over its 512-slot cache and its prefill
+# buckets, and for whisper and llama-3.2-vision-90b's self layers (g = 8,
+# hd 128; its engine shapes are qwen1.5-110b's) the model-level prefill
+# of 248 tokens, the C = 8 verify chunk over them and the uncached full
+# forward over 256 tokens, all rows filled.
 # Options: ``window`` (the kernel's argument), ``idle`` (slot 1 has no
 # query), ``full`` (no padded query rows).
 KERNEL_CASES = [
@@ -438,6 +460,25 @@ KERNEL_CASES = [
         + [("partial_prefill_attention", f"{cfg} prefill C={c} g={nh // nkv}",
             (4, c, 512, nh, nkv, 128, 0, 1), False, {})
            for c in (64, 128, 256)])
+] + [
+    ("decode_attention", "whisper decode g=1", (4, 512, 16, 16, 64, 64, 272),
+     False, {})
+] + [
+    ("partial_prefill_attention", f"whisper prefill C={c} g=1",
+     (4, c, 512, 16, 16, 64, 0, 1), False, {})
+    for c in (64, 128, 256)
+] + [
+    case
+    for cfg, nh, nkv, hd in (("whisper", 16, 16, 64),
+                             ("llama-3.2-vision", 64, 8, 128))
+    for case in (
+        ("partial_prefill_attention", f"{cfg} prefill C=248 g={nh // nkv}",
+         (4, 248, 512, nh, nkv, hd, 0, 1), False, {"full": True}),
+        ("partial_prefill_attention", f"{cfg} verify C=8 g={nh // nkv}",
+         (4, 8, 512, nh, nkv, hd, 248, 249), False, {"full": True}),
+        ("partial_prefill_attention",
+         f"{cfg} forward C=256 S=256 g={nh // nkv}",
+         (4, 256, 256, nh, nkv, hd, 0, 1), False, {"full": True}))
 ]
 
 
@@ -1746,19 +1787,21 @@ def _cosine(a, b) -> float:
         a.float().flatten(), b.float().flatten(), dim=0))
 
 
-def _greedy(cfg, params, prompts, n_new, device):
-    """Batched prefill of equal-length prompts, then ``n_new`` greedy
-    decode steps.  Returns (prefill last logits, tokens (B, n_new + 1),
-    prefill s, decode s)."""
+def _greedy(cfg, params, prompts, n_new, device, *, aux_inputs=None,
+            s_max=None):
+    """Batched prefill of equal-length prompts (with the vlm's or the
+    audio family's ``aux_inputs``), then ``n_new`` greedy decode steps,
+    over a cache of ``s_max`` slots (default just enough).  Returns
+    (prefill last logits, tokens (B, n_new + 1), prefill s, decode s)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.models import steps as S
     B, T = prompts.shape
     prefill, decode = S.make_prefill_step(cfg), S.make_decode_step(cfg)
-    cache = M.init_cache(cfg, B, T + n_new, device=device)
+    cache = M.init_cache(cfg, B, s_max or T + n_new, device=device)
     _sync(device)
     t0 = time.perf_counter()
-    last, cache = prefill(params, cache, prompts)
+    last, cache = prefill(params, cache, prompts, aux_inputs)
     _sync(device)
     t1 = time.perf_counter()
     toks = [last.argmax(-1)]
@@ -2466,6 +2509,350 @@ def profile_moe_engine(name, eng, prompt, n_moe):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the vlm and audio families at full width
+# ---------------------------------------------------------------------------
+
+# (config, layers kept or None for all): whisper-medium whole (24 encoder
+# and 24 decoder layers); llama-3.2-vision-90b is ~163 GiB in bf16 whole,
+# so it keeps two of its 20 rounds -- 10 of 100 layers, 8 self-attention
+# and 2 cross-attention -- every width as published
+CROSS_CONFIGS = [("whisper-medium", None), ("llama-3.2-vision-90b", 10)]
+# the vlm's cross-layer gates: they initialise to 0, and tanh(0) = 0 makes
+# every cross layer a no-op, so the phase sets them after init
+CROSS_GATE = 0.5
+# the model-level run: 4 prompts of CROSS_PROMPT tokens, the first
+# CROSS_PREFIX prefilled (then CROSS_NEW decode steps), the last
+# CROSS_CHUNK fed as a verify chunk over the cached prefix; caches of
+# DENSE_S_MAX slots, as the engine's
+CROSS_PROMPT, CROSS_CHUNK, CROSS_NEW = 256, 8, 32
+CROSS_PREFIX = CROSS_PROMPT - CROSS_CHUNK
+CROSS_COSINE_GATE = 0.999
+# the verify chunk against the full forward.  In bf16 a 1-ulp difference
+# of a hidden state (the chunk's 32-row GEMMs against the forward's
+# 1,024-row ones, another split of the attention) moves single logits by
+# ~0.1 (PERF.md section 6), as the plain path's own floor shows,
+# so the elementwise bf16 tolerance gates only where the plain path's
+# chunk clears it; the cosine is gated always, and at full width in
+# float32 the chunk must agree within the model-level f32 tolerance of
+# the CPU parity tests (MODEL_TOL there)
+CROSS_F32_TOL = (1e-4, 1e-4)
+
+
+def self_attention_layers(cfg) -> int:
+    """The causal self-attention layers of a vlm or audio model (the ones
+    that reach the attention kernels; the cross-attention and the audio
+    encoder are non-causal and take the plain path)."""
+    if cfg.family == "vlm":
+        return (cfg.n_layers // cfg.cross_attn_every
+                * (cfg.cross_attn_every - 1))
+    return cfg.n_layers
+
+
+def cross_launches(cfg, n_forwards, n_decode):
+    """Exact kernel launches of ``n_forwards`` multi-token forwards and
+    ``n_decode`` decode steps of a vlm or audio model on its kernel path:
+    one ``partial_prefill_attention`` or ``decode_attention`` per causal
+    self-attention layer; nothing else."""
+    n = self_attention_layers(cfg)
+    want = {k: 0 for k in KERNEL_INFO}
+    want.update(partial_prefill_attention=n_forwards * n,
+                decode_attention=n_decode * n)
+    return want
+
+
+def cross_inputs(cfg, batch, device, seed=11):
+    """Phase 11's stub frontend output on the card from a seeded
+    generator, in the model's dtype: the vlm's image embeds (batch,
+    n_image_tokens, vision_dim), the audio family's frames (batch,
+    n_audio_frames, d_model)."""
+    import torch
+    from repro_torch.models import model as M
+    g = torch.Generator(device=device).manual_seed(seed)
+    src = ((cfg.n_image_tokens, cfg.vision_dim) if cfg.family == "vlm"
+           else (cfg.n_audio_frames, cfg.d_model))
+    x = torch.randn((batch, *src), generator=g, device=device)
+    return {M.AUX_INPUTS[cfg.family]: x.to(M.torch_dtype(cfg))}
+
+
+def cross_params(cfg, seed, device):
+    """Random weights from a seed; a vlm's cross-layer gates set to
+    ``CROSS_GATE``."""
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, seed=seed, device=device)
+    if cfg.family == "vlm":
+        for key in ("gate_attn", "gate_ffn"):
+            params["cross_layers"][key].fill_(CROSS_GATE)
+    return params
+
+
+def _verify_chunk(cfg, params, prompts, aux, device):
+    """Prefill the first ``CROSS_PREFIX`` tokens with ``aux`` (the cross
+    cache filled), then feed the last ``CROSS_CHUNK`` through the verify
+    step.  Returns (chunk logits, cross cache unchanged by the verify)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+    B = prompts.shape[0]
+    cache = M.init_cache(cfg, B, DENSE_S_MAX, device=device)
+    _, cache = S.make_prefill_step(cfg)(params, cache,
+                                        prompts[:, :CROSS_PREFIX], aux)
+    cross = {k: v.clone() for k, v in cache["cross"].items()}
+    pos = M.default_positions(B, CROSS_PROMPT, device=device)[:, CROSS_PREFIX:]
+    chunk, cache = S.make_verify_step(cfg)(params, cache,
+                                           prompts[:, CROSS_PREFIX:], pos)
+    kept = all(torch.equal(cache["cross"][k], cross[k]) for k in cross)
+    return chunk, kept
+
+
+def phase_cross_configs(configs=CROSS_CONFIGS, device="cuda"):
+    """The reference's vlm and audio configs at published widths in bf16,
+    random weights from a seed (the vlm's gates set to 0.5), stub image
+    embeds and audio frames from a seeded generator.  Main path, counted,
+    through the model-level steps: a batched prefill of 4 x 248 tokens
+    with the aux inputs (filling the cross cache), 32 greedy decode steps
+    over it, and on a fresh cache the same prefill then an 8-token verify
+    chunk, which must leave the cross cache as it was and agree with the
+    full forward over the 256 tokens (cosine >= 0.999; within the bf16
+    tolerance where the plain path's own chunk is); the launches must
+    equal :func:`cross_launches` exactly.  Then, uncounted:
+    the full forward's logits through the kernels against the plain
+    (blocked) path, gated at cosine >= 0.999 where the plain floor (naive
+    vs blocked) clears it; ``run_cloud_centric`` on a dense
+    ``CloudEngine`` on phase 8's four prompts (its steps never fill the
+    cross cache, as the reference serves these families: both dense
+    kernels, nothing else); one profiled prefill and decode step; and in
+    float32 (whisper at 2 + 2 layers, vision at one round, full width)
+    identical greedy streams through the kernels and the plain path, and
+    the verify chunk within ``CROSS_F32_TOL`` of the full forward.
+    Frees each config before the next."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+    from repro_torch.serving.engine import CloudEngine
+
+    checks = {}
+    for name, depth in configs:
+        full = get_config(name)
+        cfg = full.replace(attn_impl="pallas")
+        if depth is not None:
+            cfg = cfg.replace(n_layers=depth)
+        n_self = self_attention_layers(cfg)
+        tag = f"[{cfg.family}] {name}"
+        _free(device)
+        t0 = time.perf_counter()
+        params = cross_params(cfg, 0, device)
+        _sync(device)
+        if cfg.family == "vlm":
+            rounds = cfg.n_layers // cfg.cross_attn_every
+            shape = (f"{rounds} of {full.n_layers // full.cross_attn_every} "
+                     f"rounds, {cfg.n_layers} of {full.n_layers} layers "
+                     f"({n_self} self, {rounds} cross; cut: the whole model "
+                     f"does not fit one card), widths as published; "
+                     f"{cfg.n_image_tokens} image tokens of "
+                     f"{cfg.vision_dim}, gates {CROSS_GATE}")
+        else:
+            shape = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} "
+                     f"decoder layers (whole), {cfg.n_audio_frames} frames")
+        log(f"{tag}: {shape}; d_model {cfg.d_model}, {cfg.n_heads} heads / "
+            f"{cfg.n_kv_heads} kv x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab}; {_weights_gib(params):.2f} GiB of bf16 weights; "
+            f"init {time.perf_counter() - t0:.2f} s")
+        aux = cross_inputs(cfg, DENSE_SLOTS, device)
+        prompts = torch.from_numpy(np.random.default_rng(11).integers(
+            1, cfg.vocab, (DENSE_SLOTS, CROSS_PROMPT))).to(device)
+        with torch.no_grad():       # warm-up: library handles, allocator
+            _greedy(cfg, params, prompts[:, :CROSS_PREFIX], 1, device,
+                    aux_inputs=aux, s_max=DENSE_S_MAX)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+        reset_launches()
+        with torch.no_grad():
+            last, toks, t_pre, t_dec = _greedy(
+                cfg, params, prompts[:, :CROSS_PREFIX], CROSS_NEW, device,
+                aux_inputs=aux, s_max=DENSE_S_MAX)
+            chunk, kept = _verify_chunk(cfg, params, prompts, aux, device)
+            _sync(device)
+        launches = read_launches()
+        want = cross_launches(cfg, 3, CROSS_NEW)
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device == "cuda" else float("nan"))
+        B = DENSE_SLOTS
+        key = M.AUX_INPUTS[cfg.family]
+        log(f"{tag}: prefill {B} x {CROSS_PREFIX} tokens with {key} "
+            f"{tuple(aux[key].shape)}: {t_pre * 1e3:.3f} ms; {CROSS_NEW} decode steps in "
+            f"{t_dec:.3f} s ({t_dec / CROSS_NEW * 1e3:.3f} ms per step, "
+            f"{B * CROSS_NEW / t_dec:.1f} tokens/s); peak {peak:.2f} GiB "
+            f"allocated")
+        log(f"{tag}: launches {json.dumps(launches)}; expected "
+            f"{json.dumps({k: v for k, v in want.items() if v})}")
+
+        # the full forward over the 256 tokens: the verify chunk's oracle,
+        # and the kernel-vs-plain prefill logits with the plain floor
+        with torch.no_grad():
+            pos = M.default_positions(B, CROSS_PROMPT, device=device)
+            lk, lp, ln = (M.forward(cfg.replace(attn_impl=impl), params,
+                                    prompts, pos, aux_inputs=aux)[0]
+                          for impl in ("pallas", "blocked", "naive"))
+        # the plain path's own chunk against its own full forward: the
+        # floor under the elementwise bf16 check
+        with torch.no_grad():
+            chunk_p, _ = _verify_chunk(cfg.replace(attn_impl="blocked"),
+                                       params, prompts, aux, device)
+        atol, rtol = TOL[str(chunk.dtype)]
+        ver = {}
+        for label, c, f in (("kernel", chunk, lk), ("plain", chunk_p, lp)):
+            tail = f[:, CROSS_PREFIX:]
+            ver[label] = (_cosine(c, tail), _close(c, tail, atol, rtol))
+            log(f"{tag}: verify chunk of {CROSS_CHUNK} over {CROSS_PREFIX} "
+                f"cached vs the full forward, {label} path: cosine "
+                f"{ver[label][0]:.6f}, max|diff| "
+                f"{float((c.float() - tail.float()).abs().max()):.5f} "
+                f"(|logit| <= {float(tail.float().abs().max()):.3f}); "
+                f"within atol=rtol={atol}: {ver[label][1]}")
+        log(f"{tag}: cross cache unchanged by the verify: {kept}")
+        del chunk_p, tail
+        cos, floor = _cosine(lk, lp), _cosine(ln, lp)
+        gated = floor >= CROSS_COSINE_GATE
+        log(f"{tag}: full-forward logits ({B} x {CROSS_PROMPT}), kernel vs "
+            f"plain cosine {cos:.6f}; plain floor (naive vs blocked) "
+            f"{floor:.6f}; gate {CROSS_COSINE_GATE} "
+            f"{'applied' if gated else 'not applied (floor below it)'}")
+        del lk, lp, ln
+        checks.update({
+            f"{name}: tokens in the vocab": bool(
+                ((toks >= 0) & (toks < cfg.vocab)).all()),
+            f"{name}: finite logits": bool(
+                torch.isfinite(last.float()).all()
+                and torch.isfinite(chunk.float()).all()),
+            f"{name}: launches as expected": launches == want,
+            f"{name}: verify chunk vs full forward cosine >= "
+            f"{CROSS_COSINE_GATE}": ver["kernel"][0] >= CROSS_COSINE_GATE,
+            f"{name}: verify leaves the cross cache": kept,
+        })
+        if ver["plain"][1]:
+            checks[f"{name}: verify chunk within bf16 {atol} of the full "
+                   f"forward"] = ver["kernel"][1]
+        if gated:
+            checks[f"{name}: kernel vs plain cosine >= "
+                   f"{CROSS_COSINE_GATE}"] = cos >= CROSS_COSINE_GATE
+
+        # the engine: run_cloud_centric (cross cache never filled)
+        eng = CloudEngine(cfg, params, max_slots=DENSE_SLOTS,
+                          s_max=DENSE_S_MAX, device=device)
+        eprompts = dense_prompts(cfg.vocab)
+        _engine_streams(eng, eprompts[:1], 2)          # warm-up
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        res = _engine_streams(eng, eprompts, DENSE_MAX_NEW)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        elaunch = read_launches()
+        n_tok = sum(len(o) for o in res.outputs)
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device == "cuda" else float("nan"))
+        log(f"{tag}: engine run_cloud_centric, {len(eprompts)} prompts, "
+            f"{n_tok} tokens in {wall:.3f} s wall ({n_tok / wall:.2f} "
+            f"tokens/s); sha {outputs_sha(res.outputs)}; peak {peak:.2f} "
+            f"GiB allocated; KV cache {eng.kv_cache_bytes() / 2**20:.1f} "
+            f"MiB (self + cross); launches "
+            f"{json.dumps({k: v for k, v in elaunch.items() if v})}")
+        path = DENSE_PATH[:2]
+        checks[f"{name}: engine outputs"] = all(
+            len(o) == DENSE_MAX_NEW and all(0 <= t < cfg.vocab for t in o)
+            for o in res.outputs)
+        checks[f"{name}: engine launched {', '.join(path)}, nothing else"] = (
+            all(elaunch[k] > 0 for k in path)
+            and all(v == 0 for k, v in elaunch.items() if k not in path))
+        del eng
+
+        # one profiled prefill and decode step (model-level, slot-full)
+        if device == "cuda":
+            cache = M.init_cache(cfg, B, DENSE_S_MAX, device=device)
+            prefill, decode = S.make_prefill_step(cfg), S.make_decode_step(cfg)
+            tok = toks[:, :1]
+            dpos = torch.full((B, 1), CROSS_PREFIX, dtype=torch.int32,
+                              device=device)
+            for label, fn in (
+                    (f"prefill {B} x {CROSS_PREFIX}",
+                     lambda: prefill(params, cache,
+                                     prompts[:, :CROSS_PREFIX], aux)),
+                    ("decode step", lambda: decode(params, cache, tok,
+                                                   dpos))):
+                reset_launches()
+                with torch.no_grad():
+                    prof = profile_moe_step(fn)
+                port = {k: v for k, v in read_launches().items() if v}
+                if prof is None:
+                    log(f"{tag} {label}: profiler reported no device time "
+                        f"(not measured)")
+                    continue
+                k = prof["kernel_s"]
+                log(f"{tag} {label}: wall {prof['wall_s']:.4f} s, kernels "
+                    f"{k:.4f} s, busy share {k / prof['wall_s']:.3f}; kernel "
+                    f"launches {prof['launches']} (port kernels "
+                    f"{json.dumps(port)}); host syncs {prof['syncs']}, "
+                    f"memcpy calls {prof['memcpys']}; attention kernels "
+                    f"{prof['attention_s']:.5f} s "
+                    f"({prof['attention_s'] / k:.4f} of kernel time)")
+            del cache
+        del params, aux
+        _free(device)
+
+        # float32 at full width, cut in depth: kernel vs plain streams
+        c32 = cfg.replace(dtype="float32", n_layers=(
+            cfg.cross_attn_every if cfg.family == "vlm" else 2))
+        if cfg.family == "audio":
+            c32 = c32.replace(n_encoder_layers=2)
+        p32 = cross_params(c32, 1, device)
+        aux32 = cross_inputs(c32, DENSE_SLOTS, device)
+        streams = {}
+        for impl in ("pallas", "blocked"):
+            reset_launches()
+            with torch.no_grad():
+                _, t, _, _ = _greedy(c32.replace(attn_impl=impl), p32,
+                                     prompts[:, :CROSS_PREFIX], 16, device,
+                                     aux_inputs=aux32, s_max=DENSE_S_MAX)
+            streams[impl] = (t.tolist(), read_launches())
+        depth32 = (f"{c32.n_layers} layers" if cfg.family == "vlm" else
+                   f"{c32.n_encoder_layers} + {c32.n_layers} layers")
+        used = {k: v for k, v in streams["pallas"][1].items() if v}
+        log(f"{tag}: {depth32} f32: kernel stream == plain stream: "
+            f"{streams['pallas'][0] == streams['blocked'][0]}; kernel path "
+            f"launches {json.dumps(used)}")
+        checks[f"{name}: f32 streams identical"] = \
+            streams["pallas"][0] == streams["blocked"][0]
+        checks[f"{name}: f32 kernel path launches as expected"] = \
+            streams["pallas"][1] == cross_launches(c32, 1, 16)
+        checks[f"{name}: f32 plain path launched nothing"] = \
+            not any(streams["blocked"][1].values())
+        # the verify chunk against the full forward, kernel path, in f32
+        with torch.no_grad():
+            chunk32, _ = _verify_chunk(c32, p32, prompts, aux32, device)
+            pos = M.default_positions(B, CROSS_PROMPT, device=device)
+            tail32 = M.forward(c32, p32, prompts, pos,
+                               aux_inputs=aux32)[0][:, CROSS_PREFIX:]
+        ok32 = _close(chunk32, tail32, *CROSS_F32_TOL)
+        log(f"{tag}: {depth32} f32: verify chunk vs the full forward, "
+            f"kernel path: max|diff| "
+            f"{float((chunk32 - tail32).abs().max()):.3e} (|logit| <= "
+            f"{float(tail32.abs().max()):.3f}); within atol=rtol="
+            f"{CROSS_F32_TOL[0]}: {ok32}")
+        checks[f"{name}: f32 verify chunk within {CROSS_F32_TOL[0]} of the "
+               f"full forward"] = ok32
+        del p32, aux32, chunk32, tail32
+        _free(device)
+    failed = [k for k, v in checks.items() if not v]
+    log("[cross] checks: " + json.dumps(checks))
+    if failed:
+        raise RuntimeError(f"vlm/audio phase failed: {failed}")
+
+
+# ---------------------------------------------------------------------------
 
 PHASE_LIMIT_S = 450              # a phase that runs longer is hung
 
@@ -2521,7 +2908,7 @@ def main() -> int:
                       (5, lambda: phase_paged_full_width(state)),
                       (7, lambda: phase_fleet(state)),
                       (6, ssm), (8, phase_dense_configs), (9, hybrid),
-                      (10, phase_moe_configs)):
+                      (10, phase_moe_configs), (11, phase_cross_configs)):
             t0 = time.perf_counter()
             signal.alarm(PHASE_LIMIT_S)
             out = fn()

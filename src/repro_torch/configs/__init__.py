@@ -2,9 +2,9 @@
 SLM/LLM pair and the reference's dense configs (``glm4-9b``,
 ``llama3.2-1b``, ``qwen2-1.5b``, ``qwen1.5-110b``), ``mamba2-2.7b`` (ssm
 family), ``zamba2-2.7b`` (hybrid family), ``qwen3-moe-235b-a22b`` and
-``llama4-maverick-400b-a17b`` (moe family), each a copy of the
-reference's file.  The vlm and audio configs wait for the slices that
-port their families."""
+``llama4-maverick-400b-a17b`` (moe family), ``llama-3.2-vision-90b``
+(vlm family) and ``whisper-medium`` (audio family), each a copy of the
+reference's file."""
 from repro_torch.configs.base import (  # noqa: F401
     INPUT_SHAPES,
     InputShape,
@@ -25,3 +25,6 @@ from repro_torch.configs.qwen3_moe_235b_a22b import (  # noqa: F401
     QWEN3_MOE_235B)
 from repro_torch.configs.llama4_maverick_400b_a17b import (  # noqa: F401
     LLAMA4_MAVERICK)
+from repro_torch.configs.llama_3_2_vision_90b import (  # noqa: F401
+    LLAMA32_VISION_90B)
+from repro_torch.configs.whisper_medium import WHISPER_MEDIUM  # noqa: F401

@@ -2,9 +2,8 @@
 
 One ``ModelConfig`` dataclass covers every architecture family of the
 reference (dense, moe, vlm, audio, ssm, hybrid), so one config drives
-both packages; the port so far runs ``family="dense"``, ``"moe"``,
-``"ssm"`` and ``"hybrid"``.  ``reduced()`` gives the small variant tests
-instantiate.
+both packages; the port runs every family.  ``reduced()`` gives the
+small variant tests instantiate.
 """
 from __future__ import annotations
 

@@ -1,6 +1,9 @@
 """Neural building blocks of the dense decoder, of the MoE FFN and of the
 Mamba2 (SSD) block (port of ``repro/models/layers.py``: the dense and moe
-families with dense and paged KV caches, and the ssm family).
+families with dense and paged KV caches, and the ssm family; the vlm and
+audio families' non-causal attention -- cross-attention, the audio
+encoder -- takes the plain paths below under every ``attn_impl``, as in
+the reference).
 
 Plain functions over explicit parameter dicts of tensors, as in the
 reference.  Attention exists in three implementations, selected by

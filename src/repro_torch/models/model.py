@@ -1,23 +1,31 @@
-"""Model assembly for the dense, moe, ssm and hybrid families (port of
+"""Model assembly and family-dispatched forward (port of
 ``repro/models/model.py``).
 
 Parameters are nested dicts of tensors with the reference's structure and
 names; every per-layer leaf keeps the stacked leading layer axes that the
 reference scans with ``lax.scan`` (one for a layer stack, two -- round,
-then layer -- for the hybrid's Mamba2 rounds), and ``forward`` loops over
-them in Python.  Caches are dicts of the same shape, updated in place.
+then layer -- for the hybrid's Mamba2 rounds and the vlm's self layers),
+and ``forward`` loops over them in Python.  Caches are dicts of the same
+shape, updated in place.
 
 Conventions (as in the reference):
 * ``positions`` is always (B, T) int absolute positions;
 * ``forward(...)`` returns ``(logits, cache, importance, aux_loss)``;
 * ``window`` > 0 enables sliding-window attention over a circular cache.
 
-Ported so far: ``family="dense"`` and ``family="moe"`` (every layer's FFN
-an MoE, or dense and MoE layers interleaved in rounds) with a dense or a
-paged cache, ``family="ssm"`` (Mamba2, per-layer conv windows and SSM
-states; nothing to page) and ``family="hybrid"`` (zamba2: rounds of
-Mamba2 layers, each followed by one weight-shared MHA block with its own
-KV cache; dense cache only).  The other families raise ``NotImplementedError``.
+Every family of the reference is ported: ``dense`` and ``moe`` (every
+layer's FFN an MoE, or dense and MoE layers interleaved in rounds) with a
+dense or a paged cache; ``ssm`` (Mamba2, per-layer conv windows and SSM
+states; nothing to page); ``hybrid`` (zamba2: rounds of Mamba2 layers,
+each followed by one weight-shared MHA block with its own KV cache);
+``vlm`` (rounds of self-attention layers, each closed by a gated
+cross-attention layer over projected image embeddings) and ``audio``
+(whisper: a non-causal encoder over audio frames, then decoder layers
+with self- and cross-attention).  The last four take the dense cache
+only.  The vlm and audio forwards take their frontend's output through
+``aux_inputs`` (``{"image_embeds"}`` / ``{"audio_frames"}``, in the
+model's dtype); with it, a cached forward also writes the cross cache,
+which later cached forwards read.
 """
 from __future__ import annotations
 
@@ -30,18 +38,18 @@ from repro_torch.models import layers as L
 from repro_torch.runtime import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
+# the frontend output each family's forward takes through ``aux_inputs``
+AUX_INPUTS = {"vlm": "image_embeds", "audio": "audio_frames"}
 
 
 def torch_dtype(cfg) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
-def _check_ported(cfg):
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet "
-            f"(ported: {', '.join(PORTED_FAMILIES)})")
+def _check_family(cfg):
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
 
 
 # ---------------------------------------------------------------------------
@@ -53,7 +61,7 @@ def init_params(cfg, seed: int = 0, *, device=None):
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
     numbers differ from ``jax.random``; use ``repro_torch.bridge`` to
     load the reference's own parameters)."""
-    _check_ported(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -118,26 +126,47 @@ def init_params(cfg, seed: int = 0, *, device=None):
             p["shared"] = mlp(*lead, dff=cfg.n_shared_experts * dff)
         return p
 
-    def dense_layer(*lead, mha=False, ffn="mlp", dff=None):
-        # _init_dense_layer: mha=True gives n_kv = n_heads
+    def attn(*lead, nkv, bias):
+        # layers.init_attn
         nh, hd = cfg.n_heads, cfg.head_dim
-        nkv = nh if mha else cfg.n_kv_heads
-        attn = {
+        p = {
             "wq": normal(*lead, d, nh * hd, scale=sd),
             "wk": normal(*lead, d, nkv * hd, scale=sd),
             "wv": normal(*lead, d, nkv * hd, scale=sd),
             "wo": normal(*lead, nh * hd, d, scale=sd / math.sqrt(2.0)),
         }
-        if cfg.qkv_bias:
+        if bias:
             for name, width in (("bq", nh), ("bk", nkv), ("bv", nkv)):
-                attn[name] = torch.zeros((*lead, width * hd), dtype=dt,
-                                         device=dev)
-        p = {"ln1": ones(*lead, d), "ln2": ones(*lead, d), "attn": attn}
+                p[name] = torch.zeros((*lead, width * hd), dtype=dt,
+                                      device=dev)
+        return p
+
+    def dense_layer(*lead, mha=False, ffn="mlp", dff=None):
+        # _init_dense_layer: mha=True gives n_kv = n_heads
+        nkv = cfg.n_heads if mha else cfg.n_kv_heads
+        p = {"ln1": ones(*lead, d), "ln2": ones(*lead, d),
+             "attn": attn(*lead, nkv=nkv, bias=cfg.qkv_bias)}
         if ffn == "mlp":
             p["mlp"] = mlp(*lead, dff=dff or cfg.d_ff)
         else:
             p["moe"] = moe(*lead)
         return p
+
+    def cross_layer(*lead):
+        # _init_cross_layer: the tanh gates start at zero (a no-op layer)
+        return {"ln1": ones(*lead, d), "ln2": ones(*lead, d),
+                "attn": attn(*lead, nkv=cfg.n_kv_heads, bias=cfg.qkv_bias),
+                "gate_attn": torch.zeros((*lead, 1), dtype=dt, device=dev),
+                "gate_ffn": torch.zeros((*lead, 1), dtype=dt, device=dev),
+                "mlp": mlp(*lead, dff=cfg.d_ff)}
+
+    def encdec_layer(*lead):
+        # _init_encdec_layer: no QKV bias whatever the config
+        return {"ln1": ones(*lead, d), "lnx": ones(*lead, d),
+                "ln2": ones(*lead, d),
+                "self_attn": attn(*lead, nkv=cfg.n_kv_heads, bias=False),
+                "cross_attn": attn(*lead, nkv=cfg.n_kv_heads, bias=False),
+                "mlp": mlp(*lead, dff=cfg.d_ff)}
 
     if cfg.family == "ssm":
         params["layers"] = mamba(cfg.n_layers)
@@ -151,6 +180,16 @@ def init_params(cfg, seed: int = 0, *, device=None):
         rounds = cfg.n_layers // cfg.moe_every
         params["dense_layers"] = dense_layer(rounds, dff=cfg.d_ff_dense)
         params["moe_layers"] = dense_layer(rounds, ffn="moe")
+    elif cfg.family == "vlm":
+        rounds = cfg.n_layers // cfg.cross_attn_every
+        params["self_layers"] = dense_layer(rounds, cfg.cross_attn_every - 1)
+        params["cross_layers"] = cross_layer(rounds)
+        params["vision_proj"] = normal(cfg.vision_dim, d,
+                                       scale=1.0 / math.sqrt(cfg.vision_dim))
+    elif cfg.family == "audio":
+        params["enc_layers"] = dense_layer(cfg.n_encoder_layers)
+        params["enc_norm"] = ones(d)
+        params["dec_layers"] = encdec_layer(cfg.n_layers)
     else:
         params["layers"] = dense_layer(cfg.n_layers)
     return params
@@ -175,7 +214,13 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
       (fixed size: ``s_max`` is not used); for ``family="hybrid"``
       ``{"mamba": ..., "attn": ...}``: the Mamba2 states with the two
       leading axes of ``mamba_rounds``, and one KV buffer per round (one
-      per application of the shared attention block).
+      per application of the shared attention block); for
+      ``family="vlm"`` ``{"self": ..., "cross": ...}``: the self layers'
+      KV buffers with the two leading axes of ``self_layers``, and one
+      (batch, n_image_tokens) K/V pair per round; for ``family="audio"``
+      the same with one KV buffer and one (batch, n_audio_frames) K/V
+      pair per decoder layer.  The cross stacks have no ``pos``: every
+      image token or audio frame is visible to every query.
     * ``"paged"`` -- a shared pool of ``pool_blocks`` blocks of
       ``block_size`` tokens (default ``cfg.kv_block_size``) per layer,
       plus one (batch, s_max / block_size) int32 ``block_tables`` map
@@ -185,7 +230,7 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
       (``serving/engine.BlockAllocator``).  Only
       kv_stack families page: SSM/conv states have nothing to page.
     """
-    _check_ported(cfg)
+    _check_family(cfg)
     impl = cache_impl or getattr(cfg, "cache_impl", "dense")
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
@@ -236,14 +281,30 @@ def init_cache(cfg, batch: int, s_max: int, *, cache_impl: str | None = None,
     if cfg.family == "moe" and cfg.moe_every > 1:
         rounds = n // cfg.moe_every
         return {"dense": kv_stack(rounds), "moe": kv_stack(rounds)}
+
+    def cross_stack(*lead, src_len):
+        shape = (*lead, batch, src_len, nkv, hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    if cfg.family == "vlm":
+        rounds = n // cfg.cross_attn_every
+        per = cfg.cross_attn_every - 1
+        selfc = {k: v.reshape(rounds, per, *v.shape[1:])
+                 for k, v in kv_stack(rounds * per).items()}
+        return {"self": selfc,
+                "cross": cross_stack(rounds, src_len=cfg.n_image_tokens)}
+    if cfg.family == "audio":
+        return {"self": kv_stack(n),
+                "cross": cross_stack(n, src_len=cfg.n_audio_frames)}
     return {"layers": kv_stack(n)}
 
 
 def layer_slice(tree, *index: int):
     """Layer ``index`` of a stacked parameter or cache tree (views): one
     index for a layer stack, two (round, layer) for the hybrid's
-    ``mamba_rounds``.  A paged cache's ``block_tables`` has no layer axis
-    and is shared as is."""
+    ``mamba_rounds`` and the vlm's ``self_layers``.  A paged cache's
+    ``block_tables`` has no layer axis and is shared as is."""
     return {k: layer_slice(v, *index) if isinstance(v, dict)
             else v if k == "block_tables" else v[index]
             for k, v in tree.items()}
@@ -343,11 +404,14 @@ def _layer(cfg, p, h, pos, cache, *, window=0, ret_imp=False,
 
 def _write_index(positions, stack):
     """The write index of a dense or paged KV stack for ``positions``,
-    computed once per forward and shared by every layer of the stack."""
+    computed once per forward and shared by every layer of the stack.
+    The stack's K is (*layer axes, B, S, nkv, hd) dense, (*layer axes,
+    nb, bs, nkv, hd) paged: S or the block size is its third axis from
+    the end, whatever the number of layer axes."""
     if L.is_paged(stack):
         return L.paged_write_index(positions, stack["block_tables"],
-                                   stack["k"].shape[2])
-    return L.cache_write_index(positions, stack["k"].shape[2])
+                                   stack["k"].shape[-3])
+    return L.cache_write_index(positions, stack["k"].shape[-3])
 
 
 def _uniform_stack(cfg, params, h, positions, cache, *, window, ret_imp,
@@ -440,19 +504,175 @@ def _hybrid_backbone(cfg, params, h, positions, cache, *, window, ret_imp):
     return h, torch.stack(imps).mean(0) if ret_imp else None
 
 
-def forward(cfg, params, tokens, positions, cache=None, *, window: int = 0,
-            return_importance: bool = False):
-    """tokens: (B, T) int; positions: (B, T) int.
+def _cross_attn(cfg, p, x, kv_src=None, cross_cache=None):
+    """Cross-attention of ``x`` (B, T, d) over ``kv_src`` (B, S, d) through
+    the layer's own projections, or, without ``kv_src``, over the K/V
+    already in ``cross_cache``.  No RoPE; every query sees every source
+    token (positions all 0, non-causal), so under ``attn_impl="pallas"``
+    it takes the plain path, as the reference's.  With both, the new K/V
+    are written into ``cross_cache`` in place."""
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, T, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(B, T, nh, hd)
+    if kv_src is not None:
+        S = kv_src.shape[1]
+        k = kv_src @ p["wk"]
+        v = kv_src @ p["wv"]
+        if "bk" in p:
+            k = k + p["bk"]
+            v = v + p["bv"]
+        k = k.reshape(B, S, nkv, hd)
+        v = v.reshape(B, S, nkv, hd)
+        if cross_cache is not None:
+            if cross_cache["k"].shape != k.shape:
+                raise ValueError(
+                    f"cross cache holds {tuple(cross_cache['k'].shape)}, "
+                    f"the source gives {tuple(k.shape)}")
+            cross_cache["k"].copy_(k)
+            cross_cache["v"].copy_(v)
+    else:
+        k, v = cross_cache["k"], cross_cache["v"]
+    qpos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    kvpos = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=x.device)
+    out, _ = L.attention(q, k, v, qpos, kvpos, impl=cfg.attn_impl,
+                         block_kv=cfg.attn_block_kv, causal=False)
+    return out.reshape(B, T, nh * hd) @ p["wo"]
+
+
+def _cross_layer(cfg, p, h, kv_src, cross_cache):
+    """The vlm's cross-attention layer: attention and FFN, each added
+    through its tanh gate (computed in f32, as the reference)."""
+    a_in = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    a = _cross_attn(cfg, p["attn"], a_in, kv_src, cross_cache)
+    h = h + torch.tanh(p["gate_attn"].float()).to(h.dtype) * a
+    f_in = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    f = L.mlp(p["mlp"], f_in)
+    return h + torch.tanh(p["gate_ffn"].float()).to(h.dtype) * f
+
+
+def _encdec_layer(cfg, p, h, pos, self_cache, kv_src, cross_cache, *,
+                  window=0, ret_imp=False, write_index=None):
+    """A whisper decoder layer: causal self-attention, cross-attention
+    over the encoder's output, FFN.  Returns (h, importance)."""
+    a_in = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    a, _, imp = L.attn_block(p["self_attn"], a_in, pos, cfg, self_cache,
+                             window=window, return_importance=ret_imp,
+                             write_index=write_index)
+    h = h + a
+    x_in = L.rms_norm(h, p["lnx"], cfg.norm_eps)
+    h = h + _cross_attn(cfg, p["cross_attn"], x_in, kv_src, cross_cache)
+    f_in = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    return h + L.mlp(p["mlp"], f_in), imp
+
+
+def _vlm_backbone(cfg, params, h, positions, cache, img_embeds, *, window,
+                  ret_imp):
+    """Each round runs ``cross_attn_every - 1`` dense self-attention
+    layers, then one gated cross-attention layer over the projected image
+    embeddings (or, without them, over the round's cross cache).  The
+    importance is the mean over the self layers only."""
+    kv_src = None
+    if img_embeds is not None:
+        kv_src = (img_embeds @ params["vision_proj"]).to(h.dtype)
+    rounds = cfg.n_layers // cfg.cross_attn_every
+    per = cfg.cross_attn_every - 1
+    windex = (_write_index(positions, cache["self"])
+              if cache is not None else None)
+    imps = []
+    for r in range(rounds):
+        for i in range(per):
+            lc = (layer_slice(cache["self"], r, i) if cache is not None
+                  else None)
+            h, _, imp, _ = _layer(cfg, layer_slice(params["self_layers"], r,
+                                                   i), h, positions, lc,
+                                  window=window, ret_imp=ret_imp,
+                                  write_index=windex)
+            if ret_imp:
+                imps.append(imp)
+        cc = layer_slice(cache["cross"], r) if cache is not None else None
+        h = _cross_layer(cfg, layer_slice(params["cross_layers"], r), h,
+                         kv_src, cc)
+    return h, torch.stack(imps).mean(0) if ret_imp else None
+
+
+def _audio_encoder(cfg, params, frames):
+    """Non-causal self-attention layers over the audio frames (RoPE at
+    positions ``0..Ta-1``), then ``enc_norm``."""
+    B, Ta, _ = frames.shape
+    pos = torch.arange(Ta, dtype=torch.int32,
+                       device=frames.device)[None].expand(B, Ta)
+    h = frames
+    for i in range(cfg.n_encoder_layers):
+        lp = layer_slice(params["enc_layers"], i)
+        a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+        a, _, _ = L.attn_block(lp["attn"], a_in, pos, cfg, None,
+                               causal=False)
+        h = h + a
+        f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+        h = h + L.mlp(lp["mlp"], f_in)
+    return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _audio_backbone(cfg, params, h, positions, cache, frames, *, window,
+                    ret_imp):
+    """The encoder runs once; its output feeds every decoder layer's
+    cross-attention (each through that layer's own K/V projections).
+    Without frames the decoder layers read their cross caches."""
+    kv_src = (_audio_encoder(cfg, params, frames) if frames is not None
+              else None)
+    windex = (_write_index(positions, cache["self"])
+              if cache is not None else None)
+    imps = []
+    for i in range(cfg.n_layers):
+        sc, cc = ((layer_slice(cache["self"], i),
+                   layer_slice(cache["cross"], i)) if cache is not None
+                  else (None, None))
+        h, imp = _encdec_layer(cfg, layer_slice(params["dec_layers"], i), h,
+                               positions, sc, kv_src, cc, window=window,
+                               ret_imp=ret_imp, write_index=windex)
+        if ret_imp:
+            imps.append(imp)
+    return h, torch.stack(imps).mean(0) if ret_imp else None
+
+
+def _aux_input(cfg, aux_inputs, cache):
+    """The vlm's image embeds or the audio family's frames from
+    ``aux_inputs`` (None when absent: the cross caches are read).  They
+    come in the model's dtype (the reference's ``launch/specs.py``
+    input contract); another dtype is refused, not cast."""
+    key = AUX_INPUTS[cfg.family]
+    x = (aux_inputs or {}).get(key)
+    if x is None:
+        if cache is None:
+            raise ValueError(
+                f"a {cfg.family} forward needs aux_inputs[{key!r}] or a "
+                f"cache holding its cross K/V; got neither")
+        return None
+    if x.dtype != torch_dtype(cfg):
+        raise ValueError(f"aux_inputs[{key!r}] is {x.dtype}; the model "
+                         f"takes {torch_dtype(cfg)}")
+    return x
+
+
+def forward(cfg, params, tokens, positions, cache=None, aux_inputs=None, *,
+            window: int = 0, return_importance: bool = False):
+    """tokens: (B, T) int; positions: (B, T) int; ``aux_inputs``: the vlm's
+    ``{"image_embeds": (B, n_image_tokens, vision_dim)}`` or the audio
+    family's ``{"audio_frames": (B, n_audio_frames, d_model)}``, in the
+    model's dtype (other families ignore it).
 
     Returns (logits (B, T, V), cache, importance or None, aux_loss):
-    importance is (B, S) over the attention keys for the dense and moe
-    families,
+    importance is (B, S) over the attention keys for the dense, moe, vlm
+    and audio families (the self-attention keys),
     (B, T) per token for ssm and hybrid (the hybrid's attention keys are
     its tokens: without a cache, as in the reference, whose sum needs S
     = T).  ``cache`` is updated in place and returned (None without a
     cache).
     """
-    _check_ported(cfg)
+    _check_family(cfg)
     h = params["embed"][tokens]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
@@ -461,6 +681,14 @@ def forward(cfg, params, tokens, positions, cache=None, *, window: int = 0,
     elif cfg.family == "hybrid":
         h, imp = _hybrid_backbone(cfg, params, h, positions, cache,
                                   window=window, ret_imp=return_importance)
+    elif cfg.family == "vlm":
+        h, imp = _vlm_backbone(cfg, params, h, positions, cache,
+                               _aux_input(cfg, aux_inputs, cache),
+                               window=window, ret_imp=return_importance)
+    elif cfg.family == "audio":
+        h, imp = _audio_backbone(cfg, params, h, positions, cache,
+                                 _aux_input(cfg, aux_inputs, cache),
+                                 window=window, ret_imp=return_importance)
     elif cfg.family == "moe" and cfg.moe_every > 1:
         h, imp, aux = _moe_interleaved(cfg, params, h, positions, cache,
                                        window=window,

@@ -14,16 +14,19 @@ from repro_torch.models import model as M
 
 
 def make_prefill_step(cfg):
-    """(params, cache, tokens) -> (logits_last, cache).
+    """(params, cache, tokens, aux_inputs=None) -> (logits_last, cache).
 
-    tokens: (B, T).  Fills the KV or SSM cache and returns last-position
-    logits.  An SSM has no mask: the batch's prompts share one length.
+    tokens: (B, T).  Fills the KV or SSM cache (and, given the vlm's
+    image embeds or the audio family's frames in ``aux_inputs``, the
+    cross cache) and returns last-position logits.  An SSM has no mask:
+    the batch's prompts share one length.
     """
 
-    def prefill(params, cache, tokens):
+    def prefill(params, cache, tokens, aux_inputs=None):
         B, T = tokens.shape
         pos = M.default_positions(B, T, device=tokens.device)
-        logits, cache, _, _ = M.forward(cfg, params, tokens, pos, cache=cache)
+        logits, cache, _, _ = M.forward(cfg, params, tokens, pos, cache=cache,
+                                        aux_inputs=aux_inputs)
         return logits[:, -1], cache
 
     return prefill

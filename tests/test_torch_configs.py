@@ -1,9 +1,11 @@
 """The reference's dense configs in the port, against the reference.
 
 ``glm4-9b``, ``llama3.2-1b``, ``qwen2-1.5b`` and ``qwen1.5-110b`` (and
-``zamba2-2.7b``'s config; its model is ``tests/test_torch_hybrid.py``'s)
-are copies of the reference's files: every field and the parameter count
-must agree, full size and ``reduced()``.  Each dense config's reduced
+the configs of ``zamba2-2.7b``, ``llama-3.2-vision-90b`` and
+``whisper-medium``, whose models are ``tests/test_torch_hybrid.py``'s,
+``test_torch_vlm.py``'s and ``test_torch_audio.py``'s) are copies of
+the reference's files: every field and the parameter count must agree,
+full size and ``reduced()``.  Each dense config's reduced
 model (2 layers, d_model 256, GQA g = 2, head dim 64; its QKV bias and
 tied embeddings as published) runs through both packages on the CPU in
 float32 with the reference's own weights (through ``repro_torch.bridge``)
@@ -32,7 +34,8 @@ from repro_torch.models import steps as TS
 DENSE = ["glm4-9b", "llama3.2-1b", "qwen2-1.5b", "qwen1.5-110b"]
 # parameter counts of the full configs (the reference's param_count, in B)
 PARAMS_B = {"glm4-9b": 9.40, "llama3.2-1b": 1.236, "qwen2-1.5b": 1.544,
-            "qwen1.5-110b": 111.21, "zamba2-2.7b": 2.422}
+            "qwen1.5-110b": 111.21, "zamba2-2.7b": 2.422,
+            "llama-3.2-vision-90b": 87.67, "whisper-medium": 1.012}
 # f32 through 2 layers and a 1024-way unembedding, the two packages
 # summing in other orders (XLA vs PyTorch CPU kernels)
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -50,7 +53,8 @@ def one_torch_thread():
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("name", DENSE + ["zamba2-2.7b"])
+@pytest.mark.parametrize("name", DENSE + ["zamba2-2.7b",
+                                  "llama-3.2-vision-90b", "whisper-medium"])
 def test_config_matches_reference(name, reduced):
     ref, got = ref_get_config(name), get_config(name)
     if reduced:

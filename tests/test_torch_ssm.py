@@ -430,11 +430,22 @@ def test_bridge_keeps_float32_leaves():
     assert got["embed"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_unported_families_raise(family):
-    cfg = get_config("mamba2-2.7b").reduced().replace(family=family)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TM.init_params(cfg, device="cpu")
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "forward"])
+def test_unknown_family_raises(entry):
+    """Every family of the reference is ported; an unknown one is refused
+    with the reference's ``ValueError``."""
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = TM.init_params(cfg, device="cpu")
+    bad = cfg.replace(family="diffusion")
+    calls = {
+        "init_params": lambda: TM.init_params(bad, device="cpu"),
+        "init_cache": lambda: TM.init_cache(bad, 1, 32, device="cpu"),
+        "forward": lambda: TM.forward(
+            bad, params, torch.zeros((1, 4), dtype=torch.long),
+            TM.default_positions(1, 4, device="cpu")),
+    }
+    with pytest.raises(ValueError, match="diffusion"):
+        calls[entry]()
 
 
 def test_paged_cache_refuses_ssm():

@@ -18,7 +18,9 @@ check the shapes zamba2 and the dense configs add; their g = 5 (nh 40 /
 nkv 8, llama4-maverick) and g = 16 at nkv 4 (qwen3-moe) cases, dense and
 through the paged instances (``partial_prefill_paged``, ``decode_gqa_paged``),
 the shapes the MoE configs add: at C = 8 the 40 packed rows of a g = 5
-group leave the last 16-row tile half empty.
+group leave the last 16-row tile half empty; and their g = 1 cases over
+16 heads of 64 (whisper-medium's MHA decoder), the shapes the audio
+family adds: at C = 8 one group's 8 rows fill half a 16-row tile.
 """
 from __future__ import annotations
 
@@ -233,13 +235,15 @@ def check_partial_prefill() -> bool:
     # (zamba2) as one row tile, as 80 rows over two tiles with a split,
     # and as a full 64-row tile; g = 6 (qwen2-1.5b) and g = 16 (glm4-9b)
     # g = 5 (llama4-maverick) and g = 16 over nkv 4 (qwen3-moe) at C = 8
-    # (40 rows: a half-empty last tile) and C = 64
+    # (40 rows: a half-empty last tile) and C = 64; g = 1 over 16 heads of
+    # 64 (whisper-medium) at C = 8 (half a tile) and C = 64 with a split
     cases = [(2, 16, 128, 4, 2, 64, 1), (2, 16, 160, 4, 4, 80, 1),
              (1, 40, 200, 2, 2, 80, 2), (1, 64, 128, 4, 4, 80, 1),
              (1, 8, 128, 12, 2, 128, 1), (1, 4, 160, 32, 2, 128, 2),
              (2, 8, 128, 40, 8, 128, 1), (1, 8, 160, 40, 8, 128, 2),
              (1, 64, 96, 10, 2, 128, 1), (1, 8, 128, 64, 4, 128, 1),
-             (1, 64, 96, 64, 4, 128, 2)]
+             (1, 64, 96, 64, 4, 128, 2), (1, 8, 128, 16, 16, 64, 1),
+             (1, 64, 128, 16, 16, 64, 2)]
     ok = True
     for B, C, S, nh, nkv, hd, splits in cases:
         rng = np.random.default_rng(0)
@@ -274,14 +278,17 @@ def check_decode_gqa() -> bool:
     # (B, S, nh, nkv, hd, window, splits, idle slot 1): hd 128 g 4 is the
     # card-proven case; hd 80 (zamba2) one split, three splits and a
     # window; g = 6 (qwen2-1.5b) and g = 16 (glm4-9b); g = 5
-    # (llama4-maverick, nh 40 / nkv 8) and g = 16 over nkv 4 (qwen3-moe)
+    # (llama4-maverick, nh 40 / nkv 8) and g = 16 over nkv 4 (qwen3-moe);
+    # g = 1 over 16 heads of 64 (whisper-medium), with an idle slot
     cases = [(2, 200, 8, 2, 128, 0, 2, False), (2, 200, 4, 4, 80, 0, 1, True),
              (2, 300, 4, 4, 80, 0, 3, False), (2, 256, 2, 2, 80, 64, 2, False),
              (1, 300, 12, 2, 128, 0, 2, False),
              (1, 300, 32, 2, 128, 0, 1, False),
              (2, 200, 40, 8, 128, 0, 2, True),
              (1, 300, 40, 8, 128, 0, 1, False),
-             (1, 200, 64, 4, 128, 0, 3, False)]
+             (1, 200, 64, 4, 128, 0, 3, False),
+             (2, 200, 16, 16, 64, 0, 2, True),
+             (1, 300, 16, 16, 64, 0, 1, False)]
     ok = True
     for B, S, nh, nkv, hd, window, splits, idle in cases:
         rng = np.random.default_rng(1)
