@@ -89,6 +89,21 @@ cache, as the reference serves these families); one profiled prefill and
 decode step; and identical float32 greedy streams through the kernels and
 the plain path at 2 + 2 layers (whisper) and one round (vision).  Phase 2
 holds whisper's g = 1 over 16 heads of 64 at every shape it launches.
+Phase 12 trains through the port, every earlier model freed: the paper's
+160M SLM whole (``launch.train.train``, 40 steps of 16 x 512, bf16,
+remat; every loss finite, the last five's mean below the first; ms a
+step, tokens/s, peak memory, and over two profiled steps the busy share,
+launches and an mfu from ``train_flops``; the stacked-leaf gradient
+indexed per layer against one unbind), the 7B's widths at 4 of its 32
+layers (5 steps of ``make_train_step`` with two micro-batches of 4 x
+512: finite loss, grad_norm > 0), one train step of each family's
+reduced config in float32 on the card against the host (loss, each
+gradient leaf, the parameters after the update), and the tiny pair
+trained with the reference prepare's settings, saved with the port's
+``checkpoint.io.save`` and served from there by ``launch.serve`` (the
+trained LLM's held-out nll below the SLM's).  None of the six kernels
+may launch while it trains, and a train step under ``attn_impl=
+"pallas"`` on an attention family must raise (no kernel has a gradient).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -2853,6 +2868,461 @@ def phase_cross_configs(configs=CROSS_CONFIGS, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: training
+# ---------------------------------------------------------------------------
+
+# 12a: the paper's 160M SLM whole; its corpus is cut to 8 of the
+# reference's 64 sequences of 2,048 tokens (at vocab 32,000 the synthetic
+# task draws ~3,000 tokens a second on one host core; 40 steps of 16 x 512
+# draw from 8 x 2,048 as from 64 x 2,048)
+TRAIN_160M = dict(steps=40, batch_size=16, seq_len=512)
+TRAIN_160M_CORPUS = 8
+# 12b: the 7B's widths at 4 of its 32 layers, two micro-batches
+TRAIN_7B_LAYERS, TRAIN_7B_STEPS, TRAIN_7B_BATCH, TRAIN_7B_SEQ = 4, 5, 8, 512
+# 12c: one reduced config per family, f32, card against host; mamba2
+# under "pallas", where grad mode must pick the plain scan
+TRAIN_PARITY = [("tiny-slm", "blocked"), ("qwen3-moe-235b-a22b", "blocked"),
+                ("llama4-maverick-400b-a17b", "blocked"),
+                ("mamba2-2.7b", "pallas"), ("zamba2-2.7b", "blocked"),
+                ("whisper-medium", "blocked"),
+                ("llama-3.2-vision-90b", "blocked")]
+TRAIN_PARITY_BATCH = (2, 32)
+# the CPU tests' tolerances (tests/test_torch_train.py): loss 1e-5
+# relative, each gradient leaf 1e-4 of its largest |value|, parameters
+# after one AdamW step 1e-5 wherever the gradient is resolved (above
+# that 1e-4)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_PARAM_ATOL = 1e-5, 1e-4, 1e-5
+TRAIN_PARITY_LR = 3e-3
+# 12d: the reference's benchmarks/prepare.py settings for the tiny pair
+TINY_VOCAB, TINY_STEPS = 64, {"tiny-slm": 250, "tiny-llm": 400}
+
+
+GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+
+
+def kernel_kinds(rows):
+    """Device seconds of profiler rows [(name, s, calls)] summed by kind:
+    bf16 and f32 matrix products, elementwise, reductions, the rest."""
+    kinds: dict[str, float] = {}
+    for name, sec, _ in rows:
+        n = name.lower()
+        if any(m in n for m in GEMM_MARKS):
+            kind = "f32 GEMM" if ("f32f32" in n or "sgemm" in n) \
+                else "bf16 GEMM"
+        elif "elementwise" in n:
+            kind = "elementwise"
+        elif "reduce" in n:
+            kind = "reduction"
+        else:
+            kind = "other"
+        kinds[kind] = kinds.get(kind, 0.0) + sec
+    return kinds
+
+
+def train_flops(cfg, batch, seq):
+    """Matrix-product FLOPs of one training step of a dense model, as the
+    port runs it: (6 N tokens + attention forward and backward, the
+    recompute of ``remat``).  N counts the layers' projections and the
+    unembedding (the embedding is a gather); the blocked attention forms
+    every (query, key) score of a T x T causal mask, 4 B T^2 nh hd a
+    layer forward, 3x with backward; ``remat`` adds one layer forward
+    (2 N_layers tokens + the attention forward again).  Returns
+    (without the recompute, with it)."""
+    d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_layer = d * nh * hd * 2 + 2 * d * nkv * hd + 3 * d * cfg.d_ff
+    n = cfg.n_layers * n_layer + d * cfg.vocab
+    tokens = batch * seq
+    attn_fwd = cfg.n_layers * 4 * batch * seq * seq * nh * hd
+    model = 6 * n * tokens + 3 * attn_fwd
+    recompute = (2 * cfg.n_layers * n_layer * tokens + attn_fwd
+                 if cfg.remat else 0)
+    return model, model + recompute
+
+
+def stacked_grad_ms(stack, n, reps=5):
+    """Forward and backward ms of taking ``n`` layers out of a stacked
+    parameter tree on the card: indexing each layer (one ``select`` per
+    layer and leaf, whose backward allocates a zero tensor of the whole
+    stack and adds into it) against one ``torch.unbind`` per leaf (one
+    stack in backward).  Each layer's view is summed once (its gradient
+    an expanded view: no kernel of its own).  Returns (select ms, unbind
+    ms), medians."""
+    import torch
+    from repro_torch.tree import leaves
+    xs = [t.detach().requires_grad_(True) for t in leaves(stack)]
+
+    def run(split):
+        parts = [split(x) for x in xs]
+        loss = sum(p.sum().float() for ps in parts for p in ps)
+        torch.autograd.grad(loss, xs)
+
+    out = []
+    for split in (lambda x: [x[i] for i in range(n)],
+                  lambda x: x.unbind(0)[:n]):
+        run(split)
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(split)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        out.append(float(np.median(ts)) * 1e3)
+    return tuple(out)
+
+
+class step_timer:
+    """While active, every step that ``repro_torch.launch.train`` makes
+    through ``make_train_step`` is timed with the card synchronised
+    before and after; the seconds land in ``self.seconds``."""
+
+    def __init__(self):
+        self.seconds = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.launch import train as TR
+        self._real = real = TR.make_train_step
+
+        def factory(*a, **k):
+            fn = real(*a, **k)
+
+            def step(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+                return out
+            return step
+
+        TR.make_train_step = factory
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train as TR
+        TR.make_train_step = self._real
+
+
+def train_160m(device):
+    """12a: ``launch.train.train`` on the paper's 160M SLM whole."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticTask, TaskSpec, batches
+    from repro_torch.launch import train as TR
+    from repro_torch.models import steps as S
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import leaves
+
+    cfg = get_config("synera-slm-160m")
+    t0 = time.perf_counter()
+    corpus, _ = SyntheticTask(TaskSpec(vocab=cfg.vocab)).corpus(
+        n_sequences=TRAIN_160M_CORPUS, length=2048, seed=0)
+    corpus_s = time.perf_counter() - t0
+    _free(device)
+    torch.cuda.reset_peak_memory_stats()
+    with step_timer() as timer:
+        params, losses = TR.train(cfg, corpus=corpus, log_every=10,
+                                  device=device, **TRAIN_160M)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = timer.seconds[3:]
+    step_s = float(np.median(steady))
+    B, T = TRAIN_160M["batch_size"], TRAIN_160M["seq_len"]
+    tokens = B * T
+    model_f, exec_f = train_flops(cfg, B, T)
+    peak_flops = PEAK_FLOPS["torch.bfloat16"]
+    n_params = sum(v.numel() for v in leaves(params))
+    log(f"[train] 12a {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}, remat {cfg.remat}; {n_params / 1e6:.1f}M params; "
+        f"corpus {TRAIN_160M_CORPUS} x 2048 drawn in {corpus_s:.1f} s")
+    log(f"[train] 12a losses: first {losses[0]:.4f}, last 5 mean "
+        f"{np.mean(losses[-5:]):.4f}, all: "
+        + " ".join(f"{x:.3f}" for x in losses))
+    log(f"[train] 12a step ms (median of steps 4-{len(losses)}): "
+        f"{step_s * 1e3:.2f}; first step {timer.seconds[0] * 1e3:.1f}; "
+        f"min / max {min(steady) * 1e3:.2f} / {max(steady) * 1e3:.2f}; "
+        f"tokens/s {tokens / step_s:.0f}; peak {peak:.2f} GiB")
+    log(f"[train] 12a FLOPs a step: {model_f / 1e12:.3f} T (6 N tokens, N = "
+        f"projections + unembedding, + causal attention fwd+bwd over the "
+        f"full T x T scores), {exec_f / 1e12:.3f} T with remat's recompute "
+        f"(one more layer forward); mfu {exec_f / (step_s * peak_flops):.4f} "
+        f"(with the recompute) / {model_f / (step_s * peak_flops):.4f} "
+        f"(without), against {peak_flops / 1e12:.0f} TFLOP/s dense bf16")
+
+    # two more steps from the trained parameters, profiled
+    opt = AdamW(lr=3e-3, weight_decay=0.01)
+    step = S.make_train_step(cfg, opt)
+    state = opt.init(params)
+    it = batches(corpus, B, T, rng=np.random.default_rng(3))
+
+    def two_steps():
+        nonlocal params, state
+        for _ in range(2):
+            params, state, _ = step(params, state, {
+                "tokens": torch.as_tensor(next(it), device=device)})
+
+    two_steps()
+    torch.cuda.synchronize()
+    share = profile_device_share(two_steps)
+    n_ops, n_launch, top = profile_host_ops(two_steps)
+    torch.cuda.synchronize()
+    if share is None:
+        log("[train] 12a profile: the profiler reports no device time")
+        busy = None
+    else:
+        wall, kern, rows = share
+        busy = kern / wall
+        kinds = kernel_kinds(rows)
+        log(f"[train] 12a profile (2 steps): wall {wall * 1e3:.1f} ms, "
+            f"kernels {kern * 1e3:.1f} ms, busy {busy:.3f}; kernel ms a "
+            f"step by kind: " + ", ".join(
+                f"{k} {v / 2 * 1e3:.2f}" for k, v in sorted(
+                    kinds.items(), key=lambda kv: -kv[1])))
+        log("[train] 12a top kernels (ms a step, calls a step): " + "; ".join(
+            f"{n[:110]} {t / 2 * 1e3:.2f} x{c // 2}" for n, t, c in rows[:8]))
+    log(f"[train] 12a host (2 steps): {n_ops / 2:.0f} aten calls and "
+        f"{n_launch / 2:.0f} kernel launches a step; top host events: "
+        + "; ".join(f"{n} {t * 1e3:.1f} ms x{c}" for n, t, c in top))
+    sel, unb = stacked_grad_ms(params["layers"], cfg.n_layers)
+    log(f"[train] 12a stacked-leaf gradient over {cfg.n_layers} layers: "
+        f"{sel:.2f} ms indexing each layer, {unb:.2f} ms by one unbind "
+        f"(the port's training forward): {sel - unb:.2f} ms a step saved, "
+        f"beside a {step_s * 1e3:.1f} ms step")
+    ok = bool(np.isfinite(losses).all() and np.mean(losses[-5:]) < losses[0])
+    return {"12a: losses finite and falling": ok}, dict(
+        step_ms=step_s * 1e3, tokens_s=tokens / step_s, peak_gib=peak,
+        busy=busy, launches_per_step=n_launch / 2,
+        mfu=exec_f / (step_s * peak_flops))
+
+
+def train_7b_cut(device):
+    """12b: the 7B's widths at ``TRAIN_7B_LAYERS`` layers, two
+    micro-batches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import leaves
+
+    full = get_config("synera-llm-7b")
+    cfg = full.replace(n_layers=TRAIN_7B_LAYERS)
+    _free(device)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, 0, device=device)
+    opt = AdamW(lr=3e-4)
+    state = opt.init(params)
+    n_params = sum(v.numel() for v in leaves(params))
+    moments = sum(v.numel() * v.element_size()
+                  for t in (state.mu, state.nu) for v in leaves(t))
+    step = S.make_train_step(cfg, opt, micro_batches=2)
+    rng = np.random.default_rng(5)
+    times, mets = [], []
+    for _ in range(TRAIN_7B_STEPS):
+        toks = torch.as_tensor(rng.integers(
+            0, cfg.vocab, (TRAIN_7B_BATCH, TRAIN_7B_SEQ)), device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, {"tokens": toks})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in met.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = float(np.median(times[1:]))
+    model_f, exec_f = train_flops(cfg, TRAIN_7B_BATCH, TRAIN_7B_SEQ)
+    log(f"[train] 12b {full.name} at {cfg.n_layers} of {full.n_layers} "
+        f"layers (widths as published: d {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}, remat {cfg.remat}): "
+        f"{n_params / 1e9:.3f}B params, f32 moments "
+        f"{moments / 2**30:.2f} GiB; micro-batches 2 of "
+        f"{TRAIN_7B_BATCH // 2} x {TRAIN_7B_SEQ}")
+    log(f"[train] 12b steps: " + "; ".join(
+        f"loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f} "
+        f"{t * 1e3:.1f} ms" for m, t in zip(mets, times)))
+    log(f"[train] 12b step ms (median of steps 2-{TRAIN_7B_STEPS}): "
+        f"{step_s * 1e3:.2f}; tokens/s "
+        f"{TRAIN_7B_BATCH * TRAIN_7B_SEQ / step_s:.0f}; peak {peak:.2f} GiB; "
+        f"mfu {exec_f / (step_s * PEAK_FLOPS['torch.bfloat16']):.4f} (with "
+        f"the recompute, counted as in 12a)")
+    ok = all(bool(np.isfinite(m["loss"])) and m["grad_norm"] > 0
+             for m in mets)
+    del params, state
+    return {"12b: finite loss, grad_norm > 0": ok}, dict(
+        step_ms=step_s * 1e3, peak_gib=peak)
+
+
+def parity_case(name, impl, seed=0):
+    """A reduced config (the tiny SLM by its name), its parameters from a
+    seed on the host (a vlm's gates set to ``CROSS_GATE``) and a batch
+    with its aux input from a numpy seed, all float32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.synera_pair import tiny_pair
+    from repro_torch.models import model as M
+    cfg = (tiny_pair(vocab=TINY_VOCAB)[0] if name == "tiny-slm"
+           else get_config(name).reduced()).replace(attn_impl=impl)
+    params = cross_params(cfg, seed, "cpu")
+    rng = np.random.default_rng(seed + 17)
+    B, T = TRAIN_PARITY_BATCH
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, T)))}
+    if cfg.family in M.AUX_INPUTS:
+        src = ((cfg.n_image_tokens, cfg.vision_dim) if cfg.family == "vlm"
+               else (cfg.n_audio_frames, cfg.d_model))
+        batch[M.AUX_INPUTS[cfg.family]] = torch.as_tensor(
+            rng.standard_normal((B, *src)).astype(np.float32))
+    return cfg, params, batch
+
+
+def train_parity(device):
+    """12c: one ``make_train_step`` (and the loss and gradients alone) on
+    the card and on the host, from the same float32 parameters and batch,
+    for one reduced config per family."""
+    import torch
+    from repro_torch.models import steps as S
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import flatten, tree_map
+
+    checks = {}
+    for name, impl in TRAIN_PARITY:
+        cfg, host_p, host_b = parity_case(name, impl)
+        dev_p = tree_map(lambda t: t.to(device), host_p)
+        dev_b = {k: v.to(device) for k, v in host_b.items()}
+        (hl, _), hg = S.loss_and_grad(cfg, host_p, host_b)
+        (dl, _), dg = S.loss_and_grad(cfg, dev_p, dev_b)
+        loss_err = abs(float(dl) - float(hl)) / abs(float(hl))
+        grad_err = 0.0
+        hgf = dict(flatten(hg))
+        for p, g in flatten(dg):
+            scale = float(hgf[p].abs().max())
+            err = float((g.cpu() - hgf[p]).abs().max())
+            grad_err = max(grad_err, err / scale if scale else err)
+        news = []
+        for params, batch in ((host_p, host_b), (dev_p, dev_b)):
+            opt = AdamW(lr=TRAIN_PARITY_LR, weight_decay=0.01)
+            new, _, met = S.make_train_step(cfg, opt)(
+                params, opt.init(params), batch)
+            news.append(dict(flatten(new)))
+        lr = float(met["lr"])
+        host_flat = dict(flatten(host_p))
+        resolved_err, bound_ok, off, n_total = 0.0, True, 0, 0
+        for p, g in hgf.items():
+            err = (news[1][p].cpu() - news[0][p]).abs()
+            resolved = g.abs() > TRAIN_GRAD_REL * float(g.abs().max())
+            if bool(resolved.any()):
+                resolved_err = max(resolved_err, float(err[resolved].max()))
+            # below the resolved gradients Adam's first step is about
+            # sign(g): either sign is right, within 2 lr of each other
+            bound = 2 * lr * (1 + 0.01 * host_flat[p].abs()) \
+                + TRAIN_PARAM_ATOL
+            bound_ok &= bool((err <= bound).all())
+            off += int((err > TRAIN_PARAM_ATOL).sum())
+            n_total += err.numel()
+        log(f"[train] 12c {cfg.name} ({cfg.family}, {impl}): loss "
+            f"{float(hl):.6f} host / {float(dl):.6f} card, rel {loss_err:.2e};"
+            f" grad max err {grad_err:.2e} of each leaf's max; params after "
+            f"one step: {resolved_err:.2e} where the gradient is resolved, "
+            f"{off} of {n_total} entries past {TRAIN_PARAM_ATOL:g} (each "
+            f"within 2 lr)")
+        checks[f"12c {cfg.name}: card = host"] = (
+            loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_REL
+            and resolved_err <= TRAIN_PARAM_ATOL and bound_ok
+            and off <= 1e-3 * n_total)
+    return checks
+
+
+def train_tiny_pair(device):
+    """12d: the tiny pair trained on the card with the reference
+    prepare's settings, saved with the port's ``checkpoint.io.save`` and
+    served from there by ``repro_torch.launch.serve`` in-process; the
+    trained LLM must fit held-out text better than the SLM."""
+    import tempfile
+    import torch
+    from repro_torch.configs.synera_pair import tiny_pair
+    from repro_torch.data.synthetic import SyntheticTask, TaskSpec
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as M
+
+    task = SyntheticTask(TaskSpec(vocab=TINY_VOCAB))
+    corpus, _ = task.corpus(n_sequences=64, length=2048, seed=0)
+    held, _ = task.corpus(n_sequences=8, length=512, seed=1)
+    held = {"tokens": torch.as_tensor(held, device=device)}
+    nll = {}
+    with tempfile.TemporaryDirectory() as d:
+        for cfg in tiny_pair(vocab=TINY_VOCAB):
+            steps = TINY_STEPS[cfg.name]
+            t0 = time.perf_counter()
+            params, losses = TR.train(cfg, steps=steps, corpus=corpus,
+                                      log_every=100, device=device,
+                                      ckpt_path=f"{d}/{cfg.name}.npz")
+            wall = time.perf_counter() - t0
+            with torch.no_grad():
+                nll[cfg.name] = float(M.lm_loss(cfg, params, held)[1]["nll"])
+            log(f"[train] 12d {cfg.name}: {steps} steps in {wall:.1f} s "
+                f"({wall / steps * 1e3:.1f} ms a step), loss {losses[0]:.4f}"
+                f" -> {np.mean(losses[-10:]):.4f}; held-out nll "
+                f"{nll[cfg.name]:.4f}")
+        t0 = time.perf_counter()
+        summary = serve.main(["--ckpt", d, "--mode", "synera", "--requests",
+                              "2", "--device", device, "--json"])
+        serve_s = time.perf_counter() - t0
+    empty = hashlib.sha256(json.dumps([[]] * 2).encode()).hexdigest()[:16]
+    log(f"[train] 12d served from the port's checkpoints in {serve_s:.1f} s "
+        f"(summary above)")
+    return {"12d: served, non-empty streams": (
+                summary["completed_streams"] == 2
+                and summary["outputs_sha"] != empty),
+            "12d: trained LLM's held-out nll below the SLM's":
+                nll["tiny-llm"] < nll["tiny-slm"]}
+
+
+def phase_train(device="cuda"):
+    """Phase 12: training through the port.  12a trains the paper's 160M
+    SLM whole (``launch.train.train``, 40 steps of 16 x 512, bf16, remat)
+    and profiles two more steps; 12b takes 5 steps of the 7B's widths at
+    4 layers with two micro-batches; 12c holds one train step of each
+    family's reduced config on the card against the host in float32;
+    12d trains the tiny pair, saves it with the port's
+    ``checkpoint.io.save`` and serves it from there with
+    ``launch.serve``; 12e: none of the six kernels launches during 12a-d
+    (the kernels have no gradient; the attention families train on the
+    blocked path, mamba2 under "pallas" on the plain scan), and a train
+    step under ``attn_impl="pallas"`` on an attention family raises."""
+    from repro_torch.models import steps as S
+    from repro_torch.tree import tree_map
+
+    reset_launches()
+    checks, numbers = {}, {}
+    for sub, fn in (("12a", train_160m), ("12b", train_7b_cut)):
+        c, numbers[sub] = fn(device)
+        checks.update(c)
+        _free(device)
+    checks.update(train_parity(device))
+    checks.update(train_tiny_pair(device))
+    launched = read_launches()
+    checks["12e: no kernel launched while training"] = not any(
+        launched.values())
+    cfg, params, batch = parity_case("tiny-slm", "pallas")
+    params = tree_map(lambda t: t.to(device), params)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    try:
+        S.loss_and_grad(cfg, params, batch)
+        refused = False
+    except RuntimeError as e:
+        refused = "no gradient" in str(e)
+    checks["12e: a pallas train step raises on the card"] = (
+        refused and not any(read_launches().values()))
+    log(f"[train] 12e launches during 12a-d: {json.dumps(launched)}")
+    log("[train] numbers: " + json.dumps(numbers))
+    failed = [k for k, v in checks.items() if not v]
+    log("[train] checks: " + json.dumps(checks))
+    if failed:
+        raise RuntimeError(f"training phase failed: {failed}")
+    return numbers
+
+
+# ---------------------------------------------------------------------------
 
 PHASE_LIMIT_S = 450              # a phase that runs longer is hung
 
@@ -2908,7 +3378,8 @@ def main() -> int:
                       (5, lambda: phase_paged_full_width(state)),
                       (7, lambda: phase_fleet(state)),
                       (6, ssm), (8, phase_dense_configs), (9, hybrid),
-                      (10, phase_moe_configs), (11, phase_cross_configs)):
+                      (10, phase_moe_configs), (11, phase_cross_configs),
+                      (12, phase_train)):
             t0 = time.perf_counter()
             signal.alarm(PHASE_LIMIT_S)
             out = fn()

@@ -15,21 +15,11 @@ import numpy as np
 import torch
 
 from repro_torch.runtime import resolve_device
+from repro_torch.tree import unflatten
 
 SEP = "||"   # key separator of repro/checkpoint/io.py
 # the f32 leaves of layers.init_mamba and layers.init_moe
 F32_LEAVES = ("A_log", "D", "dt_bias", "router")
-
-
-def _unflatten(flat) -> dict:
-    tree: dict = {}
-    for key in flat:
-        node = tree
-        parts = key.split(SEP)
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = flat[key]
-    return tree
 
 
 def _to_tensor(a, device, dtype):
@@ -49,7 +39,7 @@ def params_from_reference(tree, *, device=None, dtype=None) -> dict:
     dev = resolve_device(device)
     if not any(isinstance(v, dict) for v in tree.values()) and any(
             SEP in k for k in tree):
-        tree = _unflatten(tree)
+        tree = unflatten([k.split(SEP) for k in tree], tree.values())
 
     def conv(node, name=None):
         if isinstance(node, dict):

@@ -57,6 +57,18 @@ def check_kernel_inputs(name: str, floats, ints) -> int:
     return DTYPE_CODES[dtype]
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would track ``tensors``: the reference's Pallas
+    kernels have no gradient, and a CUDA kernel's output here has no
+    ``grad_fn``, so a loss through it would train whatever precedes it
+    with zero gradient, silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the reference's Pallas kernels have no gradient, and "
+            f"neither have these; train with attn_impl='blocked' (or "
+            f"'naive'), or call under torch.no_grad()")
+
+
 def raise_on_error(name: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, build, on_cpu,
-                                 raise_on_error, stream_ptr)
+                                 raise_on_error, refuse_grad, stream_ptr)
 
 # kernel launches since the last reset (plain calls excluded)
 launches = 0
@@ -167,9 +167,12 @@ def _check(x, dt, A, Bm, Cm, h0, chunk) -> int:
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None):
     """Same contract as :func:`ssd_scan_ref`; launches the CUDA kernel for
     CUDA tensors (rows past L are read as dt = 0, never padded).  The
-    kernel's four passes count as one launch."""
+    kernel's four passes count as one launch.  It has no gradient: inputs
+    under grad are refused on every device (``mamba_block`` takes
+    :func:`ssd_scan_ref` for them)."""
     global launches
     args = (x, dt, A, Bm, Cm) + ((h0,) if h0 is not None else ())
+    refuse_grad("ssd_scan", *args)
     if on_cpu(*args):
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
     code = _check(x, dt, A, Bm, Cm, h0, chunk)

@@ -8,8 +8,9 @@ defaults and JSON summary).
 
 Weights: ``--ckpt DIR`` (default ``results/ckpt``) holds the tiny pair's
 ``tiny-slm.npz`` / ``tiny-llm.npz`` as the reference's
-``checkpoint/io.py`` writes them (``python -m benchmarks.prepare`` trains
-and saves them); a missing checkpoint raises.  ``--random-weights``
+``checkpoint/io.py`` writes them (the port's ``python -m
+repro_torch.launch.train`` or the reference's ``python -m
+benchmarks.prepare`` trains and saves them); a missing checkpoint raises.  ``--random-weights``
 instead draws both models with ``models.model.init_params`` from
 ``--seed`` (SLM) and ``--seed + 1`` (LLM).  ``--device`` (default
 ``cuda``) names the card; without one the launcher raises unless
@@ -78,8 +79,10 @@ def load_pair(ckpt_dir: str, *, random_weights: bool, seed: int,
         if not os.path.exists(path):
             raise FileNotFoundError(
                 f"no checkpoint {path}: train and save the pair with the "
-                f"reference (PYTHONPATH=src:. python -m benchmarks.prepare), "
-                f"point --ckpt at it, or pass --random-weights")
+                f"port (PYTHONPATH=src python -m repro_torch.launch.train "
+                f"--model {cfg.name} --out {path}) or the reference "
+                f"(PYTHONPATH=src:. python -m benchmarks.prepare), point "
+                f"--ckpt at it, or pass --random-weights")
         params.append(ckpt.load(path, cfg, device=device))
     return slm_cfg, params[0], llm_cfg, params[1], task
 
@@ -234,9 +237,10 @@ def main(argv=None):
                          "PATH after the run (implies --trace); load it "
                          "at ui.perfetto.dev")
     ap.add_argument("--ckpt", default=CKPT_DIR, metavar="DIR",
-                    help="directory of the tiny pair's reference "
-                         "checkpoints (tiny-slm.npz, tiny-llm.npz); "
-                         "make them with python -m benchmarks.prepare")
+                    help="directory of the tiny pair's checkpoints "
+                         "(tiny-slm.npz, tiny-llm.npz); make them with "
+                         "python -m repro_torch.launch.train or the "
+                         "reference's python -m benchmarks.prepare")
     ap.add_argument("--random-weights", action="store_true",
                     help="draw both models from --seed instead of "
                          "loading --ckpt")

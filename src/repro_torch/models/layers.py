@@ -43,6 +43,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.attn_importance import attn_with_importance
 from repro_torch.kernels.decode_gqa import (decode_attention,
                                             decode_attention_paged)
@@ -169,7 +170,12 @@ def pallas_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
       draft path; windowed importance falls back to ``naive``)
     * ``decode_gqa``       -- T == 1 cached decode
     * ``partial_prefill``  -- chunked verification over a cached prefix
+
+    None of them has a gradient (the reference's Pallas kernels have no
+    ``custom_vjp``; a CUDA kernel's output here has no ``grad_fn``), so
+    inputs that autograd would track are refused, on every device.
     """
+    refuse_grad("pallas_attention", q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
@@ -377,7 +383,9 @@ def paged_pallas_attention(q, cache, q_pos, *, window: int = 0,
     """Dispatch the block-table kernels over the pool in place (no
     gathered copy): ``decode_attention_paged`` for T == 1,
     ``partial_prefill_attention_paged`` for any other T.  ``block_kv``
-    and ``kv_splits`` cut the table into the reference's split ranges."""
+    and ``kv_splits`` cut the table into the reference's split ranges.
+    Like :func:`pallas_attention`, it refuses inputs under grad."""
+    refuse_grad("paged_pallas_attention", q, cache["k"], cache["v"])
     q = q.contiguous()
     q_pos = q_pos.to(torch.int32).contiguous()
     args = (cache["k"], cache["v"])
@@ -474,16 +482,17 @@ def moe_route(router, xf, top_k: int):
 def grouped_ffn(p, xs, group_sizes: list[int]):
     """The experts' SwiGLU over rows sorted by expert (the reference's
     three ``lax.ragged_dot`` products): expert ``e`` takes the next
-    ``group_sizes[e]`` rows; experts with no row are skipped."""
-    ys = torch.empty_like(xs)
-    start = 0
+    ``group_sizes[e]`` rows; experts with no row are skipped.  The
+    experts' outputs are concatenated in ascending expert order (autograd
+    can follow that; a product written through ``out=`` it cannot)."""
+    ys, start = [], 0
     for e, n in enumerate(group_sizes):
         if n:
             seg = xs[start:start + n]
             h = silu(seg @ p["w_gate"][e]) * (seg @ p["w_up"][e])
-            torch.matmul(h, p["w_down"][e], out=ys[start:start + n])
+            ys.append(h @ p["w_down"][e])
             start += n
-    return ys
+    return torch.cat(ys)
 
 
 def moe_ffn(p, x, *, top_k: int):
@@ -658,8 +667,13 @@ def mamba_block(p, cfg, x, cache=None, *, return_importance=False):
     kernel when ``cfg.attn_impl == "pallas"``, else through its plain
     version (pad to a multiple of ``Q = min(chunk, T)``, then
     :func:`ssd_chunked`, the reference's path); one token over a cache is
-    :func:`ssd_decode`.  Importance analogue for SSMs: per-token mean
-    |dt * x|.  Returns (out, cache, importance (B, T) or None).
+    :func:`ssd_decode`.  When autograd tracks the scan's inputs (a
+    training forward) the plain version runs under every ``attn_impl``:
+    the kernel has no gradient, and the reference's model path always
+    trains through ``ssd_chunked``.  The choice is made from the grad
+    mode before any launch, never on a failure.  Importance analogue
+    for SSMs: per-token mean |dt * x|.  Returns (out, cache, importance
+    (B, T) or None).
     """
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     P = cfg.ssm_head_dim
@@ -684,7 +698,10 @@ def mamba_block(p, cfg, x, cache=None, *, return_importance=False):
         y, new_state = ssd_decode(xh, dt, A, Bm, Cm, cache["state"].float())
     else:
         h0 = cache["state"].float() if cache is not None else None
-        scan = ssd_scan if cfg.attn_impl == "pallas" else ssd_scan_ref
+        tracked = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xh, dt, Bm, Cm))
+        scan = (ssd_scan if cfg.attn_impl == "pallas" and not tracked
+                else ssd_scan_ref)
         y, new_state = scan(xh.contiguous(), dt, A, Bm.contiguous(),
                             Cm.contiguous(), chunk=cfg.ssm_chunk, h0=h0)
     y = y + (p["D"][:, None] * xh.float()).to(y.dtype)

@@ -26,6 +26,12 @@ only.  The vlm and audio forwards take their frontend's output through
 ``aux_inputs`` (``{"image_embeds"}`` / ``{"audio_frames"}``, in the
 model's dtype); with it, a cached forward also writes the cross cache,
 which later cached forwards read.
+
+Training: :func:`lm_loss` is the reference's loss.  A forward without a
+cache whose parameters require grad (a training forward) takes each
+stacked leaf's layers by one ``torch.unbind`` (:func:`layer_trees`) and,
+when ``cfg.remat``, recomputes each layer in backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.runtime import resolve_device
@@ -310,6 +317,47 @@ def layer_slice(tree, *index: int):
             for k, v in tree.items()}
 
 
+def _training(tree) -> bool:
+    """True in a training forward: grad mode is on and a leaf of ``tree``
+    requires grad, so autograd records the forward."""
+    return torch.is_grad_enabled() and any(
+        _training(v) if isinstance(v, dict) else v.requires_grad
+        for v in tree.values())
+
+
+def _unbind(tree) -> list:
+    """The layer trees of a stacked tree along its leading axis, by one
+    ``torch.unbind`` per leaf."""
+    parts = {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def layer_trees(tree, n: int) -> list:
+    """The first ``n`` layer trees of a stacked parameter tree along its
+    leading axis (for the two-axis stacks, round trees, each still
+    stacked over its layers).  In a training forward each leaf is
+    unbound once: the backward of ``torch.unbind`` is one stack, where
+    indexing each layer (:func:`layer_slice`) allocates a zero tensor of
+    the whole stack per layer in backward, O(L^2) bytes.  Otherwise
+    (serving) :func:`layer_slice` views."""
+    if _training(tree):
+        return _unbind(tree)[:n]
+    return [layer_slice(tree, i) for i in range(n)]
+
+
+def _remat(cfg, train: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, recomputed in backward (activation
+    checkpointing) when ``cfg.remat`` in a training forward: the
+    reference's ``_maybe_ckpt``, which wraps each layer scan's body in
+    ``jax.checkpoint`` when ``cfg.remat and not cache``.  A forward with
+    a cache, or without grad, runs ``fn`` as it is."""
+    if train and cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
+
+
 def paged_stacks(cache):
     """Every paged kv stack of a cache tree (the dicts holding a
     ``block_tables`` leaf), in tree order."""
@@ -420,11 +468,12 @@ def _uniform_stack(cfg, params, h, positions, cache, *, window, ret_imp,
     dense (``ffn="mlp"``) or MoE.  Returns (h, importance, summed aux)."""
     windex = (_write_index(positions, cache["layers"])
               if cache is not None else None)
+    train = cache is None and _training(params)
     imps, aux = [], torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(layer_trees(params["layers"], cfg.n_layers)):
         lc = layer_slice(cache["layers"], i) if cache is not None else None
-        h, _, imp, a = _layer(cfg, layer_slice(params["layers"], i), h,
-                              positions, lc, window=window, ret_imp=ret_imp,
+        h, _, imp, a = _remat(cfg, train, _layer, cfg, lp, h, positions, lc,
+                              window=window, ret_imp=ret_imp,
                               write_index=windex, ffn=ffn)
         if a is not None:
             aux = aux + a
@@ -441,15 +490,18 @@ def _moe_interleaved(cfg, params, h, positions, cache, *, window, ret_imp):
     rounds = cfg.n_layers // cfg.moe_every
     windex = ({k: _write_index(positions, cache[k]) for k in ("dense", "moe")}
               if cache is not None else {"dense": None, "moe": None})
+    train = cache is None and _training(params)
+    lps = {k: layer_trees(params[k + "_layers"], rounds)
+           for k in ("dense", "moe")}
     imps, aux = [], torch.zeros((), dtype=torch.float32, device=h.device)
     for r in range(rounds):
         rimps = []
         for stack, ffn in (("dense", "mlp"), ("moe", "moe")):
             lc = (layer_slice(cache[stack], r) if cache is not None
                   else None)
-            h, _, imp, a = _layer(cfg, layer_slice(params[stack + "_layers"],
-                                                   r), h, positions, lc,
-                                  window=window, ret_imp=ret_imp,
+            h, _, imp, a = _remat(cfg, train, _layer, cfg, lps[stack][r], h,
+                                  positions, lc, window=window,
+                                  ret_imp=ret_imp,
                                   write_index=windex[stack], ffn=ffn)
             if a is not None:
                 aux = aux + a
@@ -462,15 +514,22 @@ def _moe_interleaved(cfg, params, h, positions, cache, *, window, ret_imp):
 def _ssm_backbone(cfg, params, h, cache, *, ret_imp):
     """The Mamba2 stack: residual blocks with no pre-norm, as the
     reference.  Positions play no part (the reference drops them)."""
+    train = cache is None and _training(params)
     imps = []
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(layer_trees(params["layers"], cfg.n_layers)):
         lc = layer_slice(cache["layers"], i) if cache is not None else None
-        out, _, imp = L.mamba_block(layer_slice(params["layers"], i), cfg, h,
-                                    lc, return_importance=ret_imp)
-        h = h + out
+        h, imp = _remat(cfg, train, _mamba_residual, cfg, lp, h, lc,
+                        ret_imp=ret_imp)
         if ret_imp:
             imps.append(imp)
     return h, torch.stack(imps).mean(0) if ret_imp else None
+
+
+def _mamba_residual(cfg, p, h, cache, *, ret_imp):
+    """``h`` plus one Mamba2 block (no pre-norm); returns (h,
+    importance)."""
+    out, _, imp = L.mamba_block(p, cfg, h, cache, return_importance=ret_imp)
+    return h + out, imp
 
 
 def _hybrid_backbone(cfg, params, h, positions, cache, *, window, ret_imp):
@@ -483,22 +542,22 @@ def _hybrid_backbone(cfg, params, h, positions, cache, *, window, ret_imp):
     windex = (_write_index(positions, cache["attn"])
               if cache is not None else None)
     shared = params["shared_attn"]
+    train = cache is None and _training(params)
     imps = []
-    for r in range(rounds):
+    for r, rp in enumerate(layer_trees(params["mamba_rounds"], rounds)):
         imps_m = []
-        for i in range(cfg.attn_every):
+        for i, lp in enumerate(layer_trees(rp, cfg.attn_every)):
             mc = (layer_slice(cache["mamba"], r, i) if cache is not None
                   else None)
-            out, _, imp = L.mamba_block(
-                layer_slice(params["mamba_rounds"], r, i), cfg, h, mc,
-                return_importance=ret_imp)
-            h = h + out
+            h, imp = _remat(cfg, train, _mamba_residual, cfg, lp, h, mc,
+                            ret_imp=ret_imp)
             if ret_imp:
                 imps_m.append(imp)
         ac = layer_slice(cache["attn"], r) if cache is not None else None
-        h, _, imp_a, _ = _layer(cfg, shared, h, positions, ac,
-                                window=window, ret_imp=ret_imp,
-                                write_index=windex, mha=True)
+        h, _, imp_a, _ = _remat(cfg, train, _layer, cfg, shared, h,
+                                positions, ac, window=window,
+                                ret_imp=ret_imp, write_index=windex,
+                                mha=True)
         if ret_imp:
             imps.append((torch.stack(imps_m).mean(0) + imp_a) / 2)
     return h, torch.stack(imps).mean(0) if ret_imp else None
@@ -581,38 +640,44 @@ def _vlm_backbone(cfg, params, h, positions, cache, img_embeds, *, window,
     per = cfg.cross_attn_every - 1
     windex = (_write_index(positions, cache["self"])
               if cache is not None else None)
+    train = cache is None and _training(params)
+    cross = layer_trees(params["cross_layers"], rounds)
     imps = []
-    for r in range(rounds):
-        for i in range(per):
+    for r, rp in enumerate(layer_trees(params["self_layers"], rounds)):
+        for i, lp in enumerate(layer_trees(rp, per)):
             lc = (layer_slice(cache["self"], r, i) if cache is not None
                   else None)
-            h, _, imp, _ = _layer(cfg, layer_slice(params["self_layers"], r,
-                                                   i), h, positions, lc,
-                                  window=window, ret_imp=ret_imp,
+            h, _, imp, _ = _remat(cfg, train, _layer, cfg, lp, h, positions,
+                                  lc, window=window, ret_imp=ret_imp,
                                   write_index=windex)
             if ret_imp:
                 imps.append(imp)
         cc = layer_slice(cache["cross"], r) if cache is not None else None
-        h = _cross_layer(cfg, layer_slice(params["cross_layers"], r), h,
-                         kv_src, cc)
+        h = _remat(cfg, train, _cross_layer, cfg, cross[r], h, kv_src, cc)
     return h, torch.stack(imps).mean(0) if ret_imp else None
+
+
+def _encoder_layer(cfg, p, h, pos):
+    """One non-causal self-attention layer of the audio encoder."""
+    a_in = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    a, _, _ = L.attn_block(p["attn"], a_in, pos, cfg, None, causal=False)
+    h = h + a
+    f_in = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    return h + L.mlp(p["mlp"], f_in)
 
 
 def _audio_encoder(cfg, params, frames):
     """Non-causal self-attention layers over the audio frames (RoPE at
-    positions ``0..Ta-1``), then ``enc_norm``."""
+    positions ``0..Ta-1``), then ``enc_norm``.  It has no cache, so in a
+    training forward each layer is recomputed in backward whenever
+    ``cfg.remat``, as the reference's."""
     B, Ta, _ = frames.shape
     pos = torch.arange(Ta, dtype=torch.int32,
                        device=frames.device)[None].expand(B, Ta)
+    train = _training(params)
     h = frames
-    for i in range(cfg.n_encoder_layers):
-        lp = layer_slice(params["enc_layers"], i)
-        a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-        a, _, _ = L.attn_block(lp["attn"], a_in, pos, cfg, None,
-                               causal=False)
-        h = h + a
-        f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + L.mlp(lp["mlp"], f_in)
+    for lp in layer_trees(params["enc_layers"], cfg.n_encoder_layers):
+        h = _remat(cfg, train, _encoder_layer, cfg, lp, h, pos)
     return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -625,14 +690,15 @@ def _audio_backbone(cfg, params, h, positions, cache, frames, *, window,
               else None)
     windex = (_write_index(positions, cache["self"])
               if cache is not None else None)
+    train = cache is None and _training(params)
     imps = []
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(layer_trees(params["dec_layers"], cfg.n_layers)):
         sc, cc = ((layer_slice(cache["self"], i),
                    layer_slice(cache["cross"], i)) if cache is not None
                   else (None, None))
-        h, imp = _encdec_layer(cfg, layer_slice(params["dec_layers"], i), h,
-                               positions, sc, kv_src, cc, window=window,
-                               ret_imp=ret_imp, write_index=windex)
+        h, imp = _remat(cfg, train, _encdec_layer, cfg, lp, h, positions, sc,
+                        kv_src, cc, window=window, ret_imp=ret_imp,
+                        write_index=windex)
         if ret_imp:
             imps.append(imp)
     return h, torch.stack(imps).mean(0) if ret_imp else None
@@ -708,3 +774,31 @@ def default_positions(batch: int, seq: int, *, device=None):
     dev = resolve_device(device)
     return torch.arange(seq, dtype=torch.int32, device=dev)[None].expand(
         batch, seq)
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(cfg, params, batch, *, aux_weight: float = 0.01):
+    """Next-token cross-entropy plus ``aux_weight`` times the MoE
+    load-balance loss.  ``batch``: ``{"tokens": (B, T) int}``, plus the
+    vlm's ``"image_embeds"`` or the audio family's ``"audio_frames"``,
+    passed to :func:`forward` as ``aux_inputs``.  The logsumexp runs on a
+    float32 copy of the logits; the target logit is gathered in the
+    logits' dtype, then cast, as the reference.  Returns (loss, {"nll",
+    "aux"})."""
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    pos = default_positions(B, T, device=tokens.device)
+    aux_inputs = {k: batch[k] for k in ("image_embeds", "audio_frames")
+                  if k in batch}
+    logits, _, _, aux = forward(cfg, params, tokens, pos,
+                                aux_inputs=aux_inputs)
+    logits = logits[:, :-1]
+    targets = tokens[:, 1:].long()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = lse - tgt.float()
+    loss = nll.mean()
+    return loss + aux_weight * aux, {"nll": loss, "aux": aux}

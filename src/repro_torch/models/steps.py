@@ -1,16 +1,80 @@
-"""Serving step factories (port of ``repro/models/steps.py``, inference
-steps only).
+"""Step factories (port of ``repro/models/steps.py``): the training step
+and the serving steps.
 
-Each factory closes over the static config and returns a function of
-(params, cache, ...) that runs eagerly and updates the cache in place
-(the reference jits these and donates the cache).  Training steps wait
-for the training slice of the port.
+Each factory closes over the static config and returns a function that
+runs eagerly.  The serving steps take (params, cache, ...) and update the
+cache in place (the reference jits these and donates the cache).  The
+training step takes (params, opt_state, batch) and returns new trees.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.tree import flatten, tree_map, unflatten
+
+
+def loss_and_grad(cfg, params, batch):
+    """``((loss, metrics), grads)`` of :func:`models.model.lm_loss`, as
+    ``jax.value_and_grad(..., has_aux=True)`` gives them: the gradients
+    (``torch.autograd.grad`` over the tree's leaves) in the parameters'
+    dtypes, everything detached.  ``params`` is left as it is."""
+    flat = flatten(params)
+    paths = [p for p, _ in flat]
+    leaves = [leaf.detach().requires_grad_(True) for _, leaf in flat]
+    with torch.enable_grad():
+        loss, metrics = M.lm_loss(cfg, unflatten(paths, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), unflatten(paths, grads)
+
+
+def make_train_step(cfg, optimizer, *, micro_batches: int = 1):
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``micro_batches`` > 1 accumulates gradients in the step: every batch
+    entry's rows are split as ``x.reshape(m, B // m, ...)``, the
+    micro-batches' gradients summed in float32 in order and divided by
+    ``m``, and their losses and metrics averaged.  With one micro-batch
+    the gradients stay in the parameters' dtypes, as in the reference.
+    Metrics: ``nll``, ``aux``, ``loss``, ``grad_norm``, ``lr``.
+    """
+
+    def train_step(params, opt_state, batch):
+        if micro_batches == 1:
+            (loss, metrics), grads = loss_and_grad(cfg, params, batch)
+        else:
+            m = micro_batches
+            mbatch = {k: x.reshape((m, x.shape[0] // m) + x.shape[1:])
+                      for k, x in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(p.shape,
+                                                   dtype=torch.float32,
+                                                   device=p.device), params)
+            losses, metricses = [], []
+            for i in range(m):
+                (loss_i, metrics_i), g = loss_and_grad(
+                    cfg, params, {k: x[i] for k, x in mbatch.items()})
+                grads = tree_map(lambda a, gg: a + gg.float(), grads, g)
+                losses.append(loss_i)
+                metricses.append(metrics_i)
+            grads = tree_map(lambda g: g / m, grads)
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([mt[k] for mt in metricses]).mean()
+                       for k in metricses[0]}
+        params, opt_state, opt_m = optimizer.update(grads, opt_state, params)
+        metrics = dict(metrics, loss=loss, **opt_m)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_loss_fn(cfg):
+    """(params, batch) -> (loss, metrics): :func:`models.model.lm_loss`."""
+    def loss_fn(params, batch):
+        return M.lm_loss(cfg, params, batch)
+    return loss_fn
 
 
 def make_prefill_step(cfg):

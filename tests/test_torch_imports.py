@@ -21,7 +21,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, repro_torch.serving.synergy, repro_torch.serving."
             "server, repro_torch.bridge, repro_torch.serving.router, "
             "repro_torch.launch.serve, repro_torch.launch.evalset, "
-            "repro_torch.serving.gateway, repro_torch.checkpoint.io; "
+            "repro_torch.serving.gateway, repro_torch.checkpoint.io, "
+            "repro_torch.launch.train, repro_torch.optim.adamw, "
+            "repro_torch.optim.quantize; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'repro.')) or m == 'repro']; print(bad); "
             "sys.exit(1 if bad else 0)")
