@@ -104,6 +104,16 @@ trained with the reference prepare's settings, saved with the port's
 trained LLM's held-out nll below the SLM's).  None of the six kernels
 may launch while it trains, and a train step under ``attn_impl=
 "pallas"`` on an attention family must raise (no kernel has a gradient).
+Phase 13 runs the mesh tooling over a one-rank process group (NCCL for
+the card, gloo for the host): ``moe_ffn_ep`` at qwen3-moe-235b-a22b's
+published widths on a 1 x 1 ``DeviceMesh("cuda")`` (one layer, 4 x 1 and
+4 x 256 tokens; float32 within 1e-4 of the same call on the host,
+bfloat16 at cosine >= 0.99 of float32, 3 all-gathers and 3 all-reduces
+through the group), llama3.2-1b's decode step (B 8 over 4,096 slots)
+from ``dryrun.build_step`` with real weights (the counted argument bytes
+are the bytes the card holds; neither roofline term above the measured
+step), and one production-mesh record of the dry run (256 fake ranks,
+``meta``); none of the six kernels may launch.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -3323,6 +3333,219 @@ def phase_train(device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the mesh tooling
+
+MESH_MOE_ARCH = "qwen3-moe-235b-a22b"
+MESH_MOE_TOKENS = ((4, 1), (4, 256))     # (B, T): decode, prefill
+MESH_MOE_TOL = 1e-4                      # f32, card vs host
+MESH_BF16_COSINE = 0.99                  # bf16 vs f32 on the card
+MESH_DECODE = ("llama3.2-1b", 8, 4096)   # whole; B, S
+
+
+def moe_layer_params(cfg, seed, device):
+    """One MoE layer at ``cfg``'s widths, in float32, at ``init_moe``'s
+    scales, drawn from ``seed``."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, E, dff = cfg.d_model, cfg.n_experts, cfg.d_ff
+
+    def normal(*shape, scale):
+        return torch.randn(shape, generator=gen, device=device).mul_(scale)
+    return {"router": normal(d, E, scale=d ** -0.5),
+            "w_gate": normal(E, d, dff, scale=d ** -0.5),
+            "w_up": normal(E, d, dff, scale=d ** -0.5),
+            "w_down": normal(E, dff, d, scale=dff ** -0.5)}
+
+
+def _storage_bytes(tree) -> int:
+    """The bytes of the distinct storages under a tree's local tensors."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.dryrun import _tensors
+    seen = {}
+    for t in _tensors(tree):
+        st = (t.to_local() if isinstance(t, DTensor) else t).untyped_storage()
+        seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
+def mesh_moe(mesh, host_mesh, device):
+    """13i: ``moe_ffn_ep`` at the MoE config's published widths on the
+    1 x 1 mesh, in float32 (held against the same call on the host) and
+    bfloat16 (cosine against float32), its collectives counted."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.models import layers as L
+    from repro_torch.models import shardctx
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(MESH_MOE_ARCH)
+    p32 = moe_layer_params(cfg, 0, device)
+    p_host = tree_map(lambda t: t.cpu(), p32)
+    pbf = dict(p32, **{k: p32[k].bfloat16() for k in ("w_gate", "w_up",
+                                                     "w_down")})
+    gen = torch.Generator(device=device).manual_seed(1)
+    checks, numbers = {}, {}
+    for B, T in MESH_MOE_TOKENS:
+        x = torch.randn(B, T, cfg.d_model, generator=gen, device=device)
+        with shardctx.hints(moe_mesh=(mesh, batch_axes(mesh))):
+            with CommDebugMode() as comm:
+                out, aux = L.moe_ffn_ep(p32, x, top_k=cfg.top_k)
+            out_bf, _ = L.moe_ffn_ep(pbf, x.bfloat16(), top_k=cfg.top_k)
+        with shardctx.hints(moe_mesh=(host_mesh, batch_axes(host_mesh))):
+            ref, ref_aux = L.moe_ffn_ep(p_host, x.cpu(), top_k=cfg.top_k)
+        counts = {str(k).split(".")[-1]: v
+                  for k, v in comm.get_comm_counts().items()}
+        err = (out.cpu() - ref).abs().max().item()
+        aux_err = abs(aux.item() - ref_aux.item())
+        cos = _cosine(out_bf, out)
+        tag = f"13i {B}x{T}"
+        numbers[tag] = {"max_abs_err": err, "aux_err": aux_err,
+                        "bf16_cosine": cos, "collectives": counts}
+        checks[f"{tag}: f32 card vs host within {MESH_MOE_TOL}"] = (
+            err <= MESH_MOE_TOL and aux_err <= MESH_MOE_TOL)
+        checks[f"{tag}: bf16 finite, cosine >= {MESH_BF16_COSINE}"] = bool(
+            torch.isfinite(out_bf).all()) and cos >= MESH_BF16_COSINE
+        checks[f"{tag}: 3 all-gathers and 3 all-reduces through the group"] = (
+            counts.get("all_gather_into_tensor") == 3
+            and counts.get("all_reduce") == 3)
+    return checks, numbers
+
+
+def mesh_decode_step(mesh, device):
+    """13ii: llama3.2-1b's decode step (whole, B 8 over a 4,096-slot
+    cache) from ``dryrun.build_step`` on the 1 x 1 mesh with real random
+    weights: the counted argument bytes are the bytes the card holds for
+    them, the counted peak of the step's own allocations lies within the
+    card's, and neither roofline term may exceed the step's device time,
+    the sum of its kernels' durations under ``torch.profiler`` (a bound
+    above the time it bounds means the counter overcounts); the ratios
+    say how tight each bound is."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import shardctx
+
+    arch, B, S = MESH_DECODE
+    cfg = get_config(arch)
+    shape = InputShape(f"decode_{S}", S, B, "decode")
+    _free(device)
+    base = torch.cuda.memory_allocated()
+    try:
+        fn, args, pl = D.build_step(cfg, shape, mesh, device=device, seed=0)
+        args = D.shard_args(args, pl, mesh)
+        _free(device)
+        held = torch.cuda.memory_allocated() - base
+        stored = _storage_bytes(args)
+        n_tensors = len(D._tensors(args))
+        with implicit_replication():
+            for _ in range(2):
+                fn(*args)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() - before
+            prof = profile_device_share(lambda: fn(*args))
+        _, cost, memory, counted_s = D.measure(fn, args,
+                                               sync=torch.cuda.synchronize)
+    finally:
+        shardctx.clear_hints()
+    step_s = float(np.median(times))
+    device_s = prof[1] if prof else float("nan")
+    roof = D.roofline(cfg, shape, cost, mesh.size())
+    numbers = {"step_s": step_s, "device_s": device_s,
+               "t_memory_over_device": roof["t_memory"] / device_s,
+               "t_compute_over_device": roof["t_compute"] / device_s,
+               "top_kernels": [(k[:60], t, c) for k, t, c in prof[2][:5]]
+               if prof else None,
+               "counted_step_s": counted_s,
+               "argument_bytes": memory["argument_bytes"],
+               "card_storage_bytes": stored, "allocator_bytes": held,
+               "flops": cost["flops"], "bytes": cost["bytes"],
+               "collective_bytes": cost["collective_bytes"],
+               "temp_bytes": memory["temp_bytes"], "card_peak_bytes": peak,
+               "roofline": roof}
+    checks = {
+        "13ii: argument_bytes == the card's storage bytes of the arguments":
+            memory["argument_bytes"] == stored,
+        # the caching allocator rounds each allocation up to its block:
+        # 512 B steps for small ones; a large one keeps its segment's
+        # unsplit remainder (under 1 MiB)
+        "13ii: the allocator holds them, each rounded up to its block":
+            0 <= held - stored < n_tensors * (1 << 20),
+        "13ii: temp_bytes <= the card's peak above the arguments":
+            0 < memory["temp_bytes"] <= peak,
+        "13ii: the profiler saw the step's kernels": prof is not None,
+        "13ii: t_compute <= the step's device time":
+            roof["t_compute"] <= device_s,
+        "13ii: t_memory <= the step's device time":
+            roof["t_memory"] <= device_s,
+    }
+    return checks, numbers
+
+
+def phase_mesh(device="cuda"):
+    """Phase 13: the mesh tooling on the card.  A process group of one
+    rank over a ``HashStore`` (NCCL for CUDA tensors, gloo for the host
+    reference) carries a 1 x 1 ``DeviceMesh("cuda")``: 13i runs
+    ``moe_ffn_ep`` at qwen3-moe-235b-a22b's published widths (one layer;
+    4 x 1 decode and 4 x 256 prefill tokens, the prefill past its
+    experts' capacity), 13ii counts and times llama3.2-1b's decode step
+    from ``dryrun.build_step`` with real weights; then, the group torn
+    down, 13iii writes one production-mesh record (256 fake ranks,
+    ``meta``) for llama3.2-1b ``decode_32k``.  None of the six kernels
+    may launch (the dry run decodes with the naive attention, and
+    ``moe_ffn_ep`` has no kernel)."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+
+    reset_launches()
+    checks = {}
+    dist.init_process_group("cpu:gloo,cuda:nccl" if device == "cuda"
+                            else "gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(device_type=device)
+        host_mesh = make_host_mesh(device_type="cpu")
+        checks["13: the card's mesh runs on NCCL"] = (
+            "nccl" in dist.get_backend(mesh.get_group("model")))
+        c, numbers = mesh_moe(mesh, host_mesh, device)
+        checks.update(c)
+        _free(device)
+        c, numbers["13ii"] = mesh_decode_step(mesh, device)
+        checks.update(c)
+        _free(device)
+    finally:
+        dist.destroy_process_group()
+    rec = D.run_one(MESH_DECODE[0], "decode_32k",
+                    out_dir=str(ROOT / "results" / "dryrun_torch"))
+    numbers["13iii"] = {k: rec.get(k) for k in (
+        "ok", "trace_s", "flops_per_dev", "bytes_per_dev",
+        "collective_bytes_per_dev", "collective_by_kind", "memory",
+        "roofline", "error")}
+    checks["13iii: the 16 x 16 record of llama3.2-1b decode_32k"] = (
+        rec["ok"] and rec["flops_per_dev"] > 0)
+    launched = read_launches()
+    checks["13: no kernel launched"] = not any(launched.values())
+    log("[mesh] numbers: " + json.dumps(numbers))
+    log("[mesh] checks: " + json.dumps(checks))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"mesh phase failed: {failed}")
+    return numbers
+
+
+# ---------------------------------------------------------------------------
 
 PHASE_LIMIT_S = 450              # a phase that runs longer is hung
 
@@ -3379,7 +3602,7 @@ def main() -> int:
                       (7, lambda: phase_fleet(state)),
                       (6, ssm), (8, phase_dense_configs), (9, hybrid),
                       (10, phase_moe_configs), (11, phase_cross_configs),
-                      (12, phase_train)):
+                      (12, phase_train), (13, phase_mesh)):
             t0 = time.perf_counter()
             signal.alarm(PHASE_LIMIT_S)
             out = fn()

@@ -28,3 +28,18 @@ from repro_torch.configs.llama4_maverick_400b_a17b import (  # noqa: F401
 from repro_torch.configs.llama_3_2_vision_90b import (  # noqa: F401
     LLAMA32_VISION_90B)
 from repro_torch.configs.whisper_medium import WHISPER_MEDIUM  # noqa: F401
+
+# the reference's assigned architectures (10, spanning 6 families), in its
+# order: the dry run's ``--all`` sweep
+ASSIGNED_ARCHS = [
+    "glm4-9b",
+    "llama3.2-1b",
+    "qwen3-moe-235b-a22b",
+    "llama-3.2-vision-90b",
+    "llama4-maverick-400b-a17b",
+    "whisper-medium",
+    "qwen2-1.5b",
+    "mamba2-2.7b",
+    "zamba2-2.7b",
+    "qwen1.5-110b",
+]

@@ -42,6 +42,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.attn_importance import attn_with_importance
@@ -50,6 +53,7 @@ from repro_torch.kernels.decode_gqa import (decode_attention,
 from repro_torch.kernels.partial_prefill import (
     partial_prefill_attention, partial_prefill_attention_paged)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+from repro_torch.models import shardctx
 
 NEG_INF = -1e30
 
@@ -194,9 +198,59 @@ def pallas_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
     return out, None
 
 
+def _sharded_attention(q, k, v, q_pos, kv_pos, **kw):
+    """:func:`attention` over DTensors, as a ``local_map`` region: each
+    rank attends its own batch rows (q's batch sharding) with its own
+    query heads (q's head sharding, kept where its shards hold whole GQA
+    groups or share one KV head; else the heads are gathered) over the
+    KV heads they read, K/V gathered over the other mesh dims (so the
+    blocked scan never cuts a sharded sequence: the reference's
+    ``constrain_batch_dim`` of K/V).  The plain paths run inside on
+    local tensors.  (Left to DTensor, the einsums' flattened (batch,
+    head) dims would gather every head onto every rank.)"""
+    mesh = q.device_mesh
+    nh = q.shape[2]
+    g = nh // k.shape[2]
+    bdims = [i for i, p in enumerate(q.placements) if p.is_shard(0)]
+    hdims = [i for i, p in enumerate(q.placements) if p.is_shard(2)]
+    ways = 1
+    for i in hdims:
+        ways *= mesh.shape[i]
+    nh_loc = nh // ways
+    if nh % ways or (nh_loc % g and g % nh_loc):
+        hdims, nh_loc = [], nh
+    qp = tuple(Shard(0) if i in bdims else Shard(2) if i in hdims
+               else Replicate() for i in range(mesh.ndim))
+    kp = tuple(Shard(0) if i in bdims else Replicate()
+               for i in range(mesh.ndim))
+
+    def region(ql, kl, vl, qpl, kvpl):
+        h0 = shardctx.mesh_coord(mesh, hdims) * nh_loc
+        kv0, kv1 = h0 // g, (h0 + nh_loc - 1) // g + 1
+        # each head rank reads its own KV heads: K/V's gradient is the
+        # sum over the head ranks
+        haxes = [mesh.mesh_dim_names[i] for i in hdims]
+        kl, vl = (shardctx.pvary(t, mesh, haxes) for t in (kl, vl))
+        out, _ = attention(ql, kl[:, :, kv0:kv1], vl[:, :, kv0:kv1], qpl,
+                           kvpl, **kw)
+        return out
+
+    out = local_map(region, out_placements=(qp,),
+                    in_placements=(qp, kp, kp, kp, kp), device_mesh=mesh,
+                    redistribute_inputs=True)(
+        q, *(shardctx.as_dtensor(t, mesh) for t in (k, v, q_pos, kv_pos)))
+    return out, None
+
+
 def attention(q, k, v, q_pos, kv_pos, *, impl: str = "blocked",
               block_kv: int = 1024, window: int = 0, causal: bool = True,
               return_importance: bool = False):
+    if isinstance(q, DTensor):
+        if return_importance:
+            raise ValueError("importance over DTensors is not supported")
+        return _sharded_attention(q, k, v, q_pos, kv_pos, impl=impl,
+                                  block_kv=block_kv, window=window,
+                                  causal=causal)
     if impl == "pallas" and causal:
         return pallas_attention(q, k, v, q_pos, kv_pos, window=window,
                                 causal=causal,
@@ -225,9 +279,43 @@ def cache_write_index(positions, s_max: int):
     are dropped here -- the reference routes them to an out-of-bounds
     slot that XLA's scatter silently drops; torch indexing would raise
     instead.  Computed once per forward and shared by every layer (one
-    host sync on CUDA)."""
-    b_idx, t_idx = (positions >= 0).nonzero(as_tuple=True)
+    host sync on CUDA).  ``meta`` positions (a shape-only trace) hold no
+    padding to drop: every token is written.  For DTensor positions
+    :func:`cache_write` computes each rank's index itself (None)."""
+    if isinstance(positions, DTensor):
+        return None
+    if positions.is_meta:
+        B, T = positions.shape
+        b_idx = torch.arange(B, device="meta").repeat_interleave(T)
+        t_idx = torch.arange(T, device="meta").repeat(B)
+    else:
+        b_idx, t_idx = (positions >= 0).nonzero(as_tuple=True)
     return b_idx, t_idx, positions[b_idx, t_idx].long() % s_max
+
+
+def _cache_write_sharded(cache, k_new, v_new, positions):
+    """:func:`cache_write` into a DTensor cache: each rank writes its own
+    shard.  The new K/V and positions are laid out as the cache's batch
+    dim (the rest gathered); a rank holding a slice of the sequence dim
+    writes the tokens whose slots fall in it."""
+    ck = cache["k"]
+    mesh, pl = ck.device_mesh, ck.placements
+    kn, vn, pos = [shardctx.as_dtensor(t, mesh).redistribute(
+        mesh, tuple(p if p.is_shard(0) else Replicate() for p in pl)
+    ).to_local() for t in (k_new, v_new, positions)]
+    s_loc = ck.to_local().shape[1]
+    shard_s = [i for i, p in enumerate(pl) if p.is_shard(1)]
+    first = shardctx.mesh_coord(mesh, shard_s) * s_loc   # this rank's slots
+    b_idx, t_idx, slot = cache_write_index(pos, ck.shape[1])
+    if shard_s:
+        # (a meta trace cannot select: each rank counts every token)
+        if not pos.is_meta:
+            own = (slot >= first) & (slot < first + s_loc)
+            b_idx, t_idx, slot = b_idx[own], t_idx[own], slot[own]
+        slot = slot - first
+    cache_write({k: v.to_local() for k, v in cache.items()}, kn, vn, pos,
+                (b_idx, t_idx, slot))
+    return cache
 
 
 def cache_write(cache, k_new, v_new, positions, index=None):
@@ -235,6 +323,8 @@ def cache_write(cache, k_new, v_new, positions, index=None):
     when windowed).  Padding (position -1) never touches the cache.
     ``index`` is :func:`cache_write_index` for these positions, when the
     caller already has it.  Returns ``cache``."""
+    if isinstance(cache["k"], DTensor):
+        return _cache_write_sharded(cache, k_new, v_new, positions)
     if index is None:
         index = cache_write_index(positions, cache["k"].shape[1])
     b_idx, t_idx, slot = index
@@ -419,7 +509,6 @@ def attn_block(p, x, positions, cfg, cache=None, *, kv_pos=None, causal=True,
     nh = n_heads if n_heads is not None else cfg.n_heads
     nkv = n_kv if n_kv is not None else cfg.n_kv_heads
     hd = cfg.head_dim
-    B, T, _ = x.shape
 
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -428,9 +517,9 @@ def attn_block(p, x, positions, cfg, cache=None, *, kv_pos=None, causal=True,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(B, T, nh, hd)
-    k = k.reshape(B, T, nkv, hd)
-    v = v.reshape(B, T, nkv, hd)
+    q = shardctx.split_dim(q, -1, (nh, hd))
+    k = shardctx.split_dim(k, -1, (nkv, hd))
+    v = shardctx.split_dim(v, -1, (nkv, hd))
 
     src_pos = positions if kv_pos is None else kv_pos
     if rope:
@@ -446,7 +535,8 @@ def attn_block(p, x, positions, cfg, cache=None, *, kv_pos=None, causal=True,
                 q, cache, positions, window=window,
                 block_kv=getattr(cfg, "paged_block_kv", None),
                 kv_splits=getattr(cfg, "paged_kv_splits", 1))
-            return out.reshape(B, T, nh * hd) @ p["wo"], cache, None
+            out = shardctx.merge_heads(out) @ p["wo"]
+            return row_parallel_out(out), cache, None
         k_all, v_all, kv_positions = paged_kv_view(cache)
     elif cache is not None:
         cache_write(cache, k, v, positions, write_index)
@@ -458,16 +548,24 @@ def attn_block(p, x, positions, cfg, cache=None, *, kv_pos=None, causal=True,
         q, k_all, v_all, positions, kv_positions,
         impl=cfg.attn_impl, block_kv=cfg.attn_block_kv, window=window,
         causal=causal, return_importance=return_importance)
-    out = out.reshape(B, T, nh * hd) @ p["wo"]
-    return out, cache, imp
+    out = shardctx.merge_heads(out) @ p["wo"]
+    return row_parallel_out(out), cache, imp
 
 
 # ---------------------------------------------------------------------------
 # FFN: dense SwiGLU and MoE
 # ---------------------------------------------------------------------------
 
+def row_parallel_out(x):
+    """A row-parallel product's output as it joins the residual stream:
+    on a mesh, reduced and laid out over the batch axes (left partial,
+    every later product would run replicated over "model")."""
+    return shardctx.constrain_batch_dim(x, 0)
+
+
 def mlp(p, x):
-    return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return row_parallel_out(
+        (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"])
 
 
 def moe_route(router, xf, top_k: int):
@@ -518,6 +616,11 @@ def moe_ffn(p, x, *, top_k: int):
     probs, top_p, top_e = moe_route(p["router"], xf, top_k)
     flat_e = top_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
+    if flat_e.is_meta or isinstance(flat_e, DTensor):
+        raise NotImplementedError(
+            "moe_ffn reads its group sizes to the host; a meta or DTensor "
+            "trace has none (moe_ffn_ep takes a mesh whose data axes "
+            "divide the batch)")
     # (bincount would read the largest id to the host: a second sync)
     counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
@@ -539,6 +642,125 @@ def moe_ffn(p, x, *, top_k: int):
     frac = counts.float() / flat_e.numel()
     aux = E * torch.sum(frac * probs.mean(0))
     return out.reshape(B, T, d), aux
+
+
+def moe_ffn_ep(p, x, *, top_k: int, capacity_factor: float = 2.0):
+    """Expert-parallel MoE (``repro/models/layers.py:625``) as a
+    ``local_map`` region over the ``moe_mesh`` hint's mesh.
+
+    Layout: experts E over "model" (each model rank owns E / msz experts),
+    the experts' d over "data" (all-gathered in the region), tokens over
+    the data axes.  Each rank computes, for its local tokens, the
+    contributions of its own experts only: its assignments are sorted by
+    local expert with a stable sort (the reference's ``jnp.argsort``), the
+    first C kept (C = N_loc * k / msz * cf, at least 8, rounded up to 8,
+    at most N_loc * k), each expert's rows placed into a fixed (E_loc, Ce,
+    d) bucket (Ce = C up to 256 rows, else C / E_loc, at least 8; rows
+    past an expert's capacity are dropped, GShard semantics) and taken
+    through three batched products; then one all-reduce over "model"
+    sums the experts' contributions.  The aux loss's ``frac`` and
+    ``mean_prob`` are averaged over the data axes.  The shared expert is
+    added after.
+
+    With no ``moe_mesh`` hint, or with shapes the mesh does not divide,
+    this is :func:`moe_ffn`: the reference's own semantics
+    (``layers.py:644-646, :657-659``), not a device fallback.  Plain
+    tensors are taken as the global (replicated) tensors and a plain
+    result is returned."""
+    hint = shardctx.get("moe_mesh")
+    if hint is None:
+        return moe_ffn(p, x, top_k=top_k)
+    mesh, data_axes = hint
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    msz = sizes.get("model", 1)
+    B, T, d = x.shape
+    E = p["router"].shape[1]
+    E_loc = E // msz
+    dsz = 1
+    for a in data_axes:
+        dsz *= sizes.get(a, 1)
+    if (E_loc * msz != E or B % dsz != 0 or d % dsz != 0
+            or p["w_down"].shape[-1] % dsz != 0):
+        return moe_ffn(p, x, top_k=top_k)
+    B_loc = B // dsz
+    N_loc = B_loc * T
+    C = max(int(N_loc * top_k / msz * capacity_factor), 8)
+    C = -(-C // 8) * 8
+    C = min(C, N_loc * top_k)   # cannot keep more assignments than exist
+    Ce = C if C <= 256 else max(C // E_loc, 8)
+    data_dim = mesh.mesh_dim_names.index("data")
+
+    def region(xl, router, wg, wu, wd):
+        # xl: (B_loc, T, d); router: (d, E);
+        # wg/wu: (E_loc, d_loc, dff); wd: (E_loc, dff, d_loc)
+        # the router meets each data rank's own tokens, and the tokens
+        # and their weights each model rank's own experts: their
+        # gradients are summed over those ranks
+        xf = xl.reshape(N_loc, d)
+        probs, top_p, top_e = moe_route(
+            shardctx.pvary(router, mesh, data_axes), xf, top_k)
+        r = mesh.get_local_rank("model")
+        e_flat = top_e.reshape(-1)
+        w_flat = shardctx.pvary(top_p.reshape(-1), mesh, ("model",))
+        local = (e_flat // E_loc) == r
+        e_loc = torch.where(local, e_flat - r * E_loc, E_loc)  # E_loc: other
+        keep = torch.argsort(e_loc, stable=True)[:C]      # others last
+        e_keep = e_loc[keep]
+        valid = e_keep < E_loc
+        tok = keep // top_k
+        xs = shardctx.pvary(xf, mesh, ("model",))[tok]     # (C, d)
+        gs = torch.zeros(E_loc + 1, dtype=torch.long, device=xf.device)
+        gs = gs.scatter_add(0, e_keep, torch.ones_like(e_keep))[:E_loc]
+
+        # the experts' d is sharded over "data" only: gather that dim
+        grp = (mesh, data_dim)
+        wg_f = funcol.all_gather_tensor_autograd(wg, 1, grp)
+        wu_f = funcol.all_gather_tensor_autograd(wu, 1, grp)
+        wd_f = funcol.all_gather_tensor_autograd(wd, 2, grp)
+
+        e_cl = torch.where(valid, e_keep, 0)
+        offs = torch.cumsum(gs, 0) - gs
+        slot = torch.arange(C, device=xf.device) - offs[e_cl]
+        in_cap = valid & (slot < Ce) & (slot >= 0)
+        slot_w = torch.where(in_cap, slot, Ce)   # Ce: the dropped rows
+        buf = xs.new_zeros(E_loc, Ce + 1, d).index_put(
+            (e_cl, slot_w), xs)[:, :Ce]
+        g = torch.einsum("ecd,edf->ecf", buf, wg_f)
+        u = torch.einsum("ecd,edf->ecf", buf, wu_f)
+        ys_buf = torch.einsum("ecf,efd->ecd", silu(g) * u, wd_f)
+        ys = ys_buf[e_cl, slot_w.clamp(max=Ce - 1)]        # (C, d)
+
+        wk = torch.where(in_cap, w_flat[keep], 0.0).to(ys.dtype)
+        out = ys.new_zeros(N_loc, d).index_add(0, tok, ys * wk[:, None])
+        out = shardctx.psum(out, mesh, ("model",))
+
+        counts = torch.zeros(E, dtype=torch.long, device=xf.device)
+        counts = counts.scatter_add(0, e_flat, torch.ones_like(e_flat))
+        frac = shardctx.psum(counts.float() / e_flat.numel(), mesh,
+                             data_axes) / dsz
+        mean_prob = shardctx.psum(probs.mean(0), mesh, data_axes) / dsz
+        aux = E * torch.sum(frac * mean_prob)
+        return out.reshape(B_loc, T, d).to(xl.dtype), aux
+
+    def place(**shards):
+        return tuple(Shard(shards[a]) if a in shards else Replicate()
+                     for a in mesh.mesh_dim_names)
+
+    tokens = place(**{a: 0 for a in data_axes})
+    plain = not isinstance(x, DTensor)
+
+    out, aux = local_map(
+        region, out_placements=(tokens, place()),
+        in_placements=(tokens, place(), place(model=0, data=1),
+                       place(model=0, data=1), place(model=0, data=2)),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(*(shardctx.as_dtensor(t, mesh) for t in
+        (x, p["router"], p["w_gate"], p["w_up"], p["w_down"])))
+    if plain:
+        out, aux = out.full_tensor(), aux.to_local()
+    if "shared" in p:
+        out = out + mlp(p["shared"], x.reshape(-1, d)).reshape(B, T, d)
+    return out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -692,7 +914,11 @@ def mamba_block(p, cfg, x, cache=None, *, return_importance=False):
 
     dt = softplus(dt_raw.float() + p["dt_bias"])           # (B, T, H)
     A = -torch.exp(p["A_log"])                             # (H,)
-    xh = xs.reshape(B, T, H, P)
+    # pin the scan's inputs and output to batch sharding, as the blocked
+    # attention's K/V: a mesh must not shard the sequence the scan cuts
+    # into chunks
+    xh, dt, Bm, Cm = (shardctx.constrain_batch_dim(t, 0) for t in
+                      (xs.reshape(B, T, H, P), dt, Bm, Cm))
 
     if cache is not None and T == 1:
         y, new_state = ssd_decode(xh, dt, A, Bm, Cm, cache["state"].float())
@@ -704,10 +930,13 @@ def mamba_block(p, cfg, x, cache=None, *, return_importance=False):
                 else ssd_scan_ref)
         y, new_state = scan(xh.contiguous(), dt, A, Bm.contiguous(),
                             Cm.contiguous(), chunk=cfg.ssm_chunk, h0=h0)
+        # (and its gradient, which a redistribution's backward lays out
+        # as the forward output was)
+        y = shardctx.constrain_batch_dim(y, 0)
     y = y + (p["D"][:, None] * xh.float()).to(y.dtype)
     y = y.reshape(B, T, di)
     y = gated_rms_norm(y, z, p["gate_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = row_parallel_out(y @ p["out_proj"])
 
     imp = None
     if return_importance:

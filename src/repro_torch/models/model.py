@@ -39,9 +39,12 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import shardctx
 from repro_torch.runtime import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -67,13 +70,18 @@ def init_params(cfg, seed: int = 0, *, device=None):
     """Random parameters with the reference's shapes and scales, drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
     numbers differ from ``jax.random``; use ``repro_torch.bridge`` to
-    load the reference's own parameters)."""
+    load the reference's own parameters).  On ``device="meta"`` every
+    leaf is an empty tensor of its shape and dtype and nothing is drawn
+    (the dry run's parameters)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    meta = dev.type == "meta"
+    gen = None if meta else torch.Generator(device=dev).manual_seed(seed)
 
     def normal(*shape, scale, dtype=dt):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device=dev)
         x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return x.mul_(scale).to(dtype)
 
@@ -82,7 +90,7 @@ def init_params(cfg, seed: int = 0, *, device=None):
         # drawn in f32 would not fit the card beside the bf16 weights
         out = torch.empty((*lead, cfg.n_experts, rows, cols), dtype=dt,
                           device=dev)
-        for idx in np.ndindex(*lead, cfg.n_experts):
+        for idx in np.ndindex(*lead, cfg.n_experts) if not meta else ():
             out[idx] = normal(rows, cols, scale=scale)
         return out
 
@@ -446,7 +454,8 @@ def _layer(cfg, p, h, pos, cache, *, window=0, ret_imp=False,
     f_in = L.rms_norm(h, p["ln2"], cfg.norm_eps)
     if ffn == "mlp":
         return h + L.mlp(p["mlp"], f_in), nc, imp, None
-    f, aux = L.moe_ffn(p["moe"], f_in, top_k=cfg.top_k)
+    # expert parallel under a ``moe_mesh`` hint; moe_ffn otherwise
+    f, aux = L.moe_ffn_ep(p["moe"], f_in, top_k=cfg.top_k)
     return h + f, nc, imp, aux
 
 
@@ -575,16 +584,15 @@ def _cross_attn(cfg, p, x, kv_src=None, cross_cache=None):
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(B, T, nh, hd)
+    q = shardctx.split_dim(q, -1, (nh, hd))
     if kv_src is not None:
-        S = kv_src.shape[1]
         k = kv_src @ p["wk"]
         v = kv_src @ p["wv"]
         if "bk" in p:
             k = k + p["bk"]
             v = v + p["bv"]
-        k = k.reshape(B, S, nkv, hd)
-        v = v.reshape(B, S, nkv, hd)
+        k = shardctx.split_dim(k, -1, (nkv, hd))
+        v = shardctx.split_dim(v, -1, (nkv, hd))
         if cross_cache is not None:
             if cross_cache["k"].shape != k.shape:
                 raise ValueError(
@@ -598,7 +606,7 @@ def _cross_attn(cfg, p, x, kv_src=None, cross_cache=None):
     kvpos = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=x.device)
     out, _ = L.attention(q, k, v, qpos, kvpos, impl=cfg.attn_impl,
                          block_kv=cfg.attn_block_kv, causal=False)
-    return out.reshape(B, T, nh * hd) @ p["wo"]
+    return L.row_parallel_out(shardctx.merge_heads(out) @ p["wo"])
 
 
 def _cross_layer(cfg, p, h, kv_src, cross_cache):
@@ -739,7 +747,9 @@ def forward(cfg, params, tokens, positions, cache=None, aux_inputs=None, *,
     cache).
     """
     _check_family(cfg)
-    h = params["embed"][tokens]
+    # on a mesh the residual stream is sharded over the batch axes and
+    # replicated over "model" (a vocab-sharded lookup leaves a partial sum)
+    h = shardctx.constrain_batch_dim(params["embed"][tokens], 0)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
         h, imp = _ssm_backbone(cfg, params, h, cache,
@@ -766,7 +776,7 @@ def forward(cfg, params, tokens, positions, cache=None, aux_inputs=None, *,
             ffn="moe" if cfg.family == "moe" else "mlp")
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     unemb = (params["embed"].T if cfg.tie_embeddings else params["unembed"])
-    logits = h @ unemb
+    logits = shardctx.constrain(h @ unemb, "logits")
     return logits, cache, imp, aux
 
 
@@ -779,6 +789,35 @@ def default_positions(batch: int, seq: int, *, device=None):
 # ---------------------------------------------------------------------------
 # Training loss
 # ---------------------------------------------------------------------------
+
+def _sharded_nll(logits, targets):
+    """(B, T) ``logsumexp(logits) - logits[target]`` of DTensor logits as
+    a ``local_map`` region: each rank takes its vocab slice's max,
+    exp-sum and target hits (one logit plus zeros, exact), combined by
+    all-reduces over the vocab's mesh axes.  Left to DTensor, the
+    logsumexp gathers the whole vocab onto every rank and the gather's
+    backward fills a zero tensor of the global logits' shape."""
+    mesh = logits.device_mesh
+    lp = tuple(p if p.is_shard() else Replicate() for p in logits.placements)
+    vdims = [i for i, p in enumerate(lp) if p.is_shard(2)]
+    vaxes = [mesh.mesh_dim_names[i] for i in vdims]
+    tp = tuple(p if p.is_shard(0) else Replicate() for p in lp)
+
+    def region(lg, tg):
+        lf = lg.float()
+        m = shardctx.pmax(lf.detach().amax(-1, keepdim=True), mesh, vaxes)
+        s = shardctx.psum(torch.exp(lf - m).sum(-1, keepdim=True), mesh,
+                          vaxes)
+        v0 = shardctx.mesh_coord(mesh, vdims) * lg.shape[-1]
+        vocab = torch.arange(v0, v0 + lg.shape[-1], device=lg.device)
+        tgt = shardctx.psum(torch.where(vocab == tg[..., None], lg, 0).sum(
+            -1, keepdim=True), mesh, vaxes)
+        return (m + torch.log(s) - tgt.float())[..., 0]
+
+    return local_map(region, out_placements=(tp,), in_placements=(lp, tp),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        logits, shardctx.as_dtensor(targets, mesh))
+
 
 def lm_loss(cfg, params, batch, *, aux_weight: float = 0.01):
     """Next-token cross-entropy plus ``aux_weight`` times the MoE
@@ -797,8 +836,11 @@ def lm_loss(cfg, params, batch, *, aux_weight: float = 0.01):
                                 aux_inputs=aux_inputs)
     logits = logits[:, :-1]
     targets = tokens[:, 1:].long()
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
-    nll = lse - tgt.float()
+    if isinstance(logits, DTensor):
+        nll = _sharded_nll(logits, targets)
+    else:
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+        nll = lse - tgt.float()
     loss = nll.mean()
     return loss + aux_weight * aux, {"nll": loss, "aux": aux}

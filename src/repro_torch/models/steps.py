@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.models import shardctx
 from repro_torch.tree import flatten, tree_map, unflatten
 
 
@@ -47,15 +48,18 @@ def make_train_step(cfg, optimizer, *, micro_batches: int = 1):
             (loss, metrics), grads = loss_and_grad(cfg, params, batch)
         else:
             m = micro_batches
-            mbatch = {k: x.reshape((m, x.shape[0] // m) + x.shape[1:])
+            mbatch = {k: shardctx.split_dim(x, 0, (m, x.shape[0] // m))
                       for k, x in batch.items()}
             grads = tree_map(lambda p: torch.zeros(p.shape,
                                                    dtype=torch.float32,
                                                    device=p.device), params)
             losses, metricses = [], []
             for i in range(m):
+                # (on a mesh each micro-batch is sharded over the batch
+                # axes again)
                 (loss_i, metrics_i), g = loss_and_grad(
-                    cfg, params, {k: x[i] for k, x in mbatch.items()})
+                    cfg, params, {k: shardctx.constrain_batch_dim(x[i], 0)
+                                  for k, x in mbatch.items()})
                 grads = tree_map(lambda a, gg: a + gg.float(), grads, g)
                 losses.append(loss_i)
                 metricses.append(metrics_i)

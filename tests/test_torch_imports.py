@@ -23,7 +23,10 @@ def test_import_leaves_jax_out():
             "repro_torch.launch.serve, repro_torch.launch.evalset, "
             "repro_torch.serving.gateway, repro_torch.checkpoint.io, "
             "repro_torch.launch.train, repro_torch.optim.adamw, "
-            "repro_torch.optim.quantize; "
+            "repro_torch.optim.quantize, repro_torch.launch.mesh, "
+            "repro_torch.launch.sharding, repro_torch.launch.specs, "
+            "repro_torch.launch.cost_analysis, repro_torch.launch.dryrun, "
+            "repro_torch.models.shardctx; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'repro.')) or m == 'repro']; print(bad); "
             "sys.exit(1 if bad else 0)")
