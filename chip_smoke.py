@@ -19,7 +19,14 @@ bfloat16, requires attn_with_importance and ssd_scan to give the same
 bits on a second call and a slot no query may see to get importance
 exactly 0, and times kernel, plain version and one library call with L2
 flushed before each timed call, beside an empty kernel's time under the
-same harness.  Phase 3 serves
+same harness.  It also holds the grouped product (``grouped_mm``, the
+counterpart of ``lax.ragged_dot`` in the MoE layer) at phase 10's
+shapes -- qwen3-moe's decode (32 rows) and 256-token prefill (2,048
+rows), llama4-maverick's (4 and 256 rows), each product direction, group
+sizes from a skewed routing draw with empty groups and one group past a
+64-row chunk -- and its input and weight gradients at qwen3-moe's
+prefill, in both dtypes, a second call bit-identical, timed beside
+``torch._grouped_mm`` and a per-expert ``torch.matmul`` loop.  Phase 3 serves
 ``run_synera`` and ``run_cloud_centric`` end to end with the paper's
 SLM/LLM pair at full width on the dense cache (random weights from a
 seed) and checks that every kernel of the path was launched.  Phase 4
@@ -68,8 +75,12 @@ block), holds the prefill logits against the plain attention path routed
 as the kernel path chose (cosine >= 0.999, after the plain floor clears
 it), profiles one prefill and one decode step
 (busy share, launches, host syncs, the experts' GEMM time against the
-attention kernels), and at 2 layers in float32 requires identical
-streams through the kernels and the plain path, dense and paged.  Phase 2
+attention kernels; no host sync inside ``moe_ffn``), runs one decode
+step with its MoE layers under ``torch.cuda.set_sync_debug_mode(
+"error")``, and at 2
+layers in float32 requires identical streams through the kernels and the
+plain path, dense and paged.  Each engine also launches ``grouped_mm``,
+the experts' products.  Phase 2
 holds the attention kernels at the shapes phase 10 launches (g = 16 over
 4 KV heads, g = 5 over 8); phase 4 also serves the tiny pair with its LLM
 made MoE, dense and paged, through the kernels and the plain paths.
@@ -101,9 +112,11 @@ reduced config in float32 on the card against the host (loss, each
 gradient leaf, the parameters after the update), and the tiny pair
 trained with the reference prepare's settings, saved with the port's
 ``checkpoint.io.save`` and served from there by ``launch.serve`` (the
-trained LLM's held-out nll below the SLM's).  None of the six kernels
-may launch while it trains, and a train step under ``attn_impl=
-"pallas"`` on an attention family must raise (no kernel has a gradient).
+trained LLM's held-out nll below the SLM's).  No attention or SSD
+kernel may launch while it trains, and a train step under ``attn_impl=
+"pallas"`` on an attention family must raise (those kernels have no
+gradient); the MoE families' steps in 12c run the grouped kernels
+forward and backward (``grouped_mm``, ``grouped_mm_wgrad``).
 Phase 13 runs the mesh tooling over a one-rank process group (NCCL for
 the card, gloo for the host): ``moe_ffn_ep`` at qwen3-moe-235b-a22b's
 published widths on a 1 x 1 ``DeviceMesh("cuda")`` (one layer, 4 x 1 and
@@ -113,7 +126,7 @@ through the group), llama3.2-1b's decode step (B 8 over 4,096 slots)
 from ``dryrun.build_step`` with real weights (the counted argument bytes
 are the bytes the card holds; neither roofline term above the measured
 step), and one production-mesh record of the dry run (256 fake ranks,
-``meta``); none of the six kernels may launch.
+``meta``); none of the port's kernels may launch.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -159,12 +172,18 @@ KERNEL_INFO = {
     "ssd_scan": dict(
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:75"),
+    # lax.ragged_dot, an XLA op (no Pallas kernel) in the reference's moe_ffn
+    "grouped_mm": dict(
+        source="src/repro_torch/kernels/csrc/grouped_mm.cu",
+        replaces="src/repro/models/layers.py:605"),
 }
 # the kernels each serving path launches (phases 3, 5 and 6)
 DENSE_PATH = ("decode_attention", "partial_prefill_attention",
               "attn_with_importance")
 PAGED_PATH = ("decode_attention_paged", "partial_prefill_attention_paged")
 SSM_PATH = ("ssd_scan",)
+MOE_PATH = ("grouped_mm",)      # the experts' products (phases 4, 10, 12c)
+GROUPED = ("grouped_mm", "grouped_mm_wgrad")
 # CUDA symbols of the port's kernels (profiler rows): the attention
 # kernels, and the four passes of one ssd_scan call
 PORT_KERNEL_SYMBOLS = ("decode_gqa_kernel", "partial_prefill_kernel",
@@ -179,18 +198,23 @@ def log(*a):
 
 def kernel_modules():
     from repro_torch.kernels import (attn_importance, decode_gqa,
-                                     partial_prefill, ssd_scan)
+                                     grouped_mm, partial_prefill, ssd_scan)
     return {"decode_attention": decode_gqa,
             "partial_prefill_attention": partial_prefill,
             "attn_with_importance": attn_importance,
             "decode_attention_paged": decode_gqa,
             "partial_prefill_attention_paged": partial_prefill,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan,
+            "grouped_mm": grouped_mm,
+            "grouped_mm_wgrad": grouped_mm}
 
 
 def _counter(name: str) -> str:
     """Name of the launch counter of kernel ``name`` in its module."""
-    return "paged_launches" if name.endswith("_paged") else "launches"
+    for suffix in ("paged", "wgrad"):
+        if name.endswith("_" + suffix):
+            return f"{suffix}_launches"
+    return "launches"
 
 
 def reset_launches():
@@ -599,6 +623,7 @@ def phase_kernels():
     main["attn_with_importance"]["empty_kernel_ms"] = floor
     main.update(phase_paged_kernels())
     main.update(phase_ssd_kernel())
+    main.update(phase_grouped_mm())
     return main
 
 
@@ -863,6 +888,165 @@ def phase_ssd_kernel():
                 main["ssd_scan"] = rec
     if not ok:
         raise RuntimeError("ssd_scan disagrees with its plain version")
+    return main
+
+
+# Grouped products: (label, experts, top-k, rows M, K, N, op, main-path?).
+# op "fwd" is grouped_mm (y = x w[e]); "dx" the input gradient's product
+# (dy w[e]^T, w read transposed); "wgrad" grouped_mm_wgrad (x^T dy per
+# group).  Phase 10's shapes: qwen3-moe (128 experts, d 4096, d_ff 1536,
+# top-8) at a decode step of its 4 slots (32 rows) and a 256-token
+# prefill (2,048 rows), llama4-maverick (128 experts, d 5120, d_ff 8192,
+# top-1) at 4 and 256 rows, each in both product directions; the
+# backward products at qwen3-moe's prefill; and the engine's bucketed
+# prefill as phase 10 profiles it: 4 slots x 256, three of them padding,
+# whose 768 identical tokens all take the same 8 experts (GMM_PADDED).
+GMM_CASES = [
+    ("qwen3-moe decode, gate/up", 128, 8, 32, 4096, 1536, "fwd", True),
+    ("qwen3-moe decode, down", 128, 8, 32, 1536, 4096, "fwd", False),
+    ("qwen3-moe prefill 256, gate/up", 128, 8, 2048, 4096, 1536, "fwd",
+     False),
+    ("qwen3-moe prefill 256, down", 128, 8, 2048, 1536, 4096, "fwd", False),
+    ("llama4 decode, gate/up", 128, 1, 4, 5120, 8192, "fwd", False),
+    ("llama4 decode, down", 128, 1, 4, 8192, 5120, "fwd", False),
+    ("llama4 prefill 256, gate/up", 128, 1, 256, 5120, 8192, "fwd", False),
+    ("llama4 prefill 256, down", 128, 1, 256, 8192, 5120, "fwd", False),
+    ("qwen3-moe prefill 256, gate/up dx", 128, 8, 2048, 4096, 1536, "dx",
+     False),
+    ("qwen3-moe prefill 256, gate/up wgrad", 128, 8, 2048, 4096, 1536,
+     "wgrad", False),
+    ("qwen3-moe prefill 4 x 256, 3 slots padding, gate/up", 128, 8, 8192,
+     4096, 1536, "fwd", False),
+]
+GMM_PADDED = {8192: 768}         # rows M -> padding tokens among them
+GMM_SKEW = 2.0                   # std of the experts' logit bias in the draw
+GMM_CHUNK = 64                   # the kernel's rows per chunk (BM)
+
+
+def gmm_group_sizes(E, k, M, seed):
+    """Rows per expert of a skewed top-k routing draw of M / k tokens:
+    each token takes k distinct experts, sampled without replacement
+    (Gumbel top-k) from softmax(bias), bias ~ N(0, GMM_SKEW^2); the
+    ``GMM_PADDED[M]`` padding tokens among them all take the first
+    token's experts."""
+    rng = np.random.default_rng(seed)
+    bias = rng.standard_normal(E) * GMM_SKEW
+    scores = bias + rng.gumbel(size=(M // k, E))
+    top = np.argsort(-scores, axis=1)[:, :k]
+    top[M // k - GMM_PADDED.get(M, 0):] = top[0]
+    return np.bincount(top.reshape(-1), minlength=E)
+
+
+def _gmm_library(op, a):
+    """One ``torch._grouped_mm`` call for the same function (bf16 only; a
+    yardstick, never called by the port): (fn, None), or (None, why)."""
+    import torch
+    if a["x"].dtype != torch.bfloat16 or not hasattr(torch, "_grouped_mm"):
+        return None, "bf16 only"
+    x, w, dy, ends = a["x"], a["w"], a["dy"], a["ends"]
+    fn = {"fwd": lambda: torch._grouped_mm(x, w, offs=ends),
+          "dx": lambda: torch._grouped_mm(dy, w.transpose(1, 2), offs=ends),
+          "wgrad": lambda: torch._grouped_mm(x.t(), dy, offs=ends)}[op]
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 -- record why, time nothing
+        return None, f"{type(e).__name__}: {str(e)[:200]}"
+    return fn, None
+
+
+def phase_grouped_mm():
+    """grouped_mm (forward, the input gradient's transposed product) and
+    grouped_mm_wgrad against their plain versions on the card.  Group
+    sizes come from a skewed routing draw: empty groups, and one group
+    past a 64-row chunk at qwen3-moe's prefill.  The check is on the
+    output's scale, as a product's rounding is: max |kernel - plain| <=
+    atol + rtol max |plain| (TOL); a second call must give the same bits.
+    Times: kernel (L2 cold and warm), plain version, one
+    ``torch._grouped_mm`` call (bf16; the library time) and a loop of
+    per-expert ``torch.matmul`` calls over host-known segments (logged).
+    The bound counts the bytes of the experts that have rows, each once,
+    and 2 K N flops a row.  Returns the bf16 main-path record."""
+    import torch
+    from repro_torch.kernels import grouped_mm as GM
+    main, ok = {}, True
+    empty_seen = long_seen = False
+    for i, (label, E, k, M, K, N, op, is_main) in enumerate(GMM_CASES):
+        sizes = gmm_group_sizes(E, k, M, seed=500 + i)
+        bounds = np.concatenate([[0], np.cumsum(sizes)])
+        segs = [(e, int(bounds[e]), int(bounds[e + 1])) for e in range(E)
+                if sizes[e]]
+        empty_seen |= bool((sizes == 0).any())
+        long_seen |= bool(sizes.max() > GMM_CHUNK)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(600 + i)
+            a = dict(ends=torch.tensor(bounds[1:], dtype=torch.int32,
+                                       device="cuda"))
+            a["x"] = torch.randn(M, K, generator=g, device="cuda",
+                                 dtype=dtype)
+            a["w"] = torch.randn(E, K, N, generator=g, device="cuda",
+                                 dtype=dtype).mul_(K ** -0.5)
+            a["dy"] = torch.randn(M, N, generator=g, device="cuda",
+                                  dtype=dtype)
+            x, w, dy, ends = a["x"], a["w"], a["dy"], a["ends"]
+            if op == "fwd":       # reads x and the used experts, writes y
+                kern = lambda: GM.grouped_mm(x, w, ends)
+                plain = lambda: GM.grouped_mm_ref(x, w, ends)
+                loop = lambda: [torch.matmul(x[s:t], w[e])
+                                for e, s, t in segs]
+            elif op == "dx":      # reads dy and the used experts, writes dx
+                kern = lambda: torch.ops.repro_torch.grouped_mm(dy, w, ends,
+                                                                True)
+                plain = lambda: GM.grouped_mm_ref(dy, w, ends, trans_w=True)
+                loop = lambda: [torch.matmul(dy[s:t], w[e].t())
+                                for e, s, t in segs]
+            else:                 # reads x and dy, writes all of dw
+                kern = lambda: GM.grouped_mm_wgrad(x, dy, ends)
+                plain = lambda: GM.grouped_mm_wgrad_ref(x, dy, ends)
+                loop = lambda: [torch.matmul(x[s:t].t(), dy[s:t])
+                                for e, s, t in segs]
+            out = kern()
+            again = kern()
+            ref = plain()
+            torch.cuda.synchronize()
+            atol, rtol = TOL[str(dtype)]
+            err = float((out.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            good = (err <= atol + rtol * scale and torch.equal(again, out)
+                    and bool(torch.isfinite(out.float()).all()))
+            esz = x.element_size()
+            rows = int(bounds[-1])
+            used_w = len(segs) * K * N
+            nbytes = esz * (x.numel() + dy.numel()
+                            + (E * K * N if op == "wgrad" else used_w))
+            nbytes += E * 4
+            flops = 2 * rows * K * N
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_flops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+            lib, why = _gmm_library(op, a)
+            rec = dict(
+                name="grouped_mm_wgrad" if op == "wgrad" else "grouped_mm",
+                case=label, op=op, dtype=str(dtype), shape=[E, k, M, K, N],
+                groups_with_rows=len(segs), largest_group=int(sizes.max()),
+                ok=good, max_abs_err=err, ref_max_abs=scale,
+                ms=_time_ms(kern), ms_l2_warm=_time_ms(kern, cold=False),
+                plain_ms=_time_ms(plain, iters=5),
+                expert_loop_ms=_time_ms(loop, iters=5),
+                library_ms=_time_ms(lib) if lib is not None else None,
+                library_note=why, bytes=nbytes, flops=flops,
+                bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations")
+            log("[kernels] " + json.dumps(rec))
+            ok = ok and good
+            if is_main and dtype == torch.bfloat16:
+                main["grouped_mm"] = rec
+            del a, x, w, dy, ends, out, again, ref, kern, plain, loop, lib
+            torch.cuda.empty_cache()
+    log(f"[kernels] grouped_mm draws: an empty group {empty_seen}, a group "
+        f"past {GMM_CHUNK} rows {long_seen}")
+    if not (ok and empty_seen and long_seen):
+        raise RuntimeError("grouped_mm disagrees with its plain version (or "
+                           "the draws missed an empty or a long group)")
     return main
 
 
@@ -1861,7 +2045,7 @@ def expected_launches(cfg, n_forwards, n_decode):
     ``decode_attention`` in a decode step; nothing else."""
     rounds = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
               else 0)
-    want = {k: 0 for k in KERNEL_INFO}
+    want = {k: 0 for k in kernel_modules()}
     want.update(ssd_scan=n_forwards * cfg.n_layers,
                 partial_prefill_attention=n_forwards * rounds,
                 decode_attention=n_decode * rounds)
@@ -2224,10 +2408,11 @@ def profile_moe_step(fn):
     """Run ``fn`` under torch.profiler (host and device) with the MoE
     ranges on.  Returns a dict: wall s, summed kernel s, the port's
     attention kernels' s, the device s of the ``moe_ffn`` and
-    ``grouped_ffn`` ranges, host syncs (``cudaStreamSynchronize``),
-    ``cudaMemcpyAsync`` calls (any direction) and kernel launches; None
-    when the profiler reports no device time.  The profiler slows the
-    host, so the busy share is a lower bound."""
+    ``grouped_ffn`` ranges, host syncs (``cudaStreamSynchronize``) in
+    all and inside a ``moe_ffn`` range, ``cudaMemcpyAsync`` calls (any
+    direction) and kernel launches; None when the profiler reports no
+    device time.  The profiler slows the host, so the busy share is a
+    lower bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2249,6 +2434,8 @@ def profile_moe_step(fn):
         return us / 1e6
 
     cpu = [e for e in evs if e.device_type == DeviceType.CPU]
+    moe = [e.time_range for e in cpu if e.name == "moe_ffn"]
+    syncs = [e.time_range for e in cpu if e.name == "cudaStreamSynchronize"]
     return dict(
         wall_s=wall,
         kernel_s=sum(e.time_range.elapsed_us() for e in kernels) / 1e6,
@@ -2257,7 +2444,9 @@ def profile_moe_step(fn):
         / 1e6,
         **{f"{n}_s": sum(dev_s(e) for e in cpu if e.name == n)
            for n in MOE_RANGES},
-        syncs=sum(e.name == "cudaStreamSynchronize" for e in cpu),
+        syncs=len(syncs),
+        syncs_in_moe_ffn=sum(any(m.start <= t.start and t.end <= m.end
+                                 for m in moe) for t in syncs),
         memcpys=sum(e.name == "cudaMemcpyAsync" for e in cpu),
         launches=sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
                      for e in cpu))
@@ -2287,19 +2476,23 @@ def phase_moe_configs(configs=MOE_CONFIGS, device="cuda"):
     the plain (blocked) attention path with the plain path routed as the
     kernel path chose (cosine >= 0.999, after the plain floor, naive vs
     blocked routed so, clears it); each path routing itself, the cosine
-    is logged (a flipped expert moves it far).
+    is logged (a flipped expert moves it far).  Every engine also
+    launches ``grouped_mm`` (the experts' products) and no other kernel.
     One engine decode step and the 256-token prefill run under the
-    profiler: busy share, launches, host syncs, and the kernel time of
-    the experts' products against the attention kernels.  At 2 layers
-    in float32 the streams through the kernels and the plain path, dense
-    and paged, must be identical.  Frees each config before the next."""
+    profiler: busy share, launches, host syncs (none inside ``moe_ffn``),
+    and the kernel time of the experts' products against the attention
+    kernels; one decode step runs with its ``moe_ffn`` calls under
+    ``set_sync_debug_mode("error")``.  At 2 layers in float32 the
+    streams through the kernels and the plain path, dense and paged, must
+    be identical.  Frees each config before the next.  Returns the summed
+    ``grouped_mm`` launches of the ``run_cloud_centric`` runs."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import splits as SP
     from repro_torch.models import model as M
     from repro_torch.serving.engine import CloudEngine
 
-    checks = {}
+    checks, moe_launches = {}, 0
     sms = SP.sm_count(torch.device(device)) if device == "cuda" else \
         SP.SM_COUNT
     paged_kw = dict(cache_impl="paged", block_size=16, share_prefix=True)
@@ -2322,8 +2515,8 @@ def phase_moe_configs(configs=MOE_CONFIGS, device="cuda"):
             f"init {time.perf_counter() - t0:.2f} s")
         prompts = dense_prompts(cfg.vocab)
         shas = {}
-        for layout, kw, path in (("dense", {}, DENSE_PATH[:2]),
-                                 ("paged", paged_kw, PAGED_PATH)):
+        for layout, kw, path in (("dense", {}, DENSE_PATH[:2] + MOE_PATH),
+                                 ("paged", paged_kw, PAGED_PATH + MOE_PATH)):
             eng = CloudEngine(cfg, params, max_slots=DENSE_SLOTS,
                               s_max=DENSE_S_MAX, device=device, **kw)
             _engine_streams(eng, prompts[:1], 2)   # warm-up
@@ -2336,6 +2529,7 @@ def phase_moe_configs(configs=MOE_CONFIGS, device="cuda"):
             _sync(device)
             wall = time.perf_counter() - t0
             launches = read_launches()
+            moe_launches += launches["grouped_mm"]
             n_tok = sum(len(o) for o in res.outputs)
             peak = (torch.cuda.max_memory_allocated() / 2**30
                     if device == "cuda" else float("nan"))
@@ -2373,7 +2567,8 @@ def phase_moe_configs(configs=MOE_CONFIGS, device="cuda"):
                     sms=sms)
                 log(f"[moe] {name}: splits / grid: " + json.dumps(grids))
                 if device == "cuda":
-                    profile_moe_engine(name, eng, prompts[-1], n_moe)
+                    checks.update(profile_moe_engine(name, eng, prompts[-1],
+                                                     n_moe))
             del eng
             _free(device)
 
@@ -2416,6 +2611,7 @@ def phase_moe_configs(configs=MOE_CONFIGS, device="cuda"):
     log("[moe] checks: " + json.dumps(checks))
     if failed:
         raise RuntimeError(f"MoE phase failed: {failed}")
+    return {"grouped_mm": moe_launches}
 
 
 class pinned_routing:
@@ -2497,12 +2693,47 @@ def prefill_cosines(cfg, params, prompts, device):
     return cos
 
 
+# host syncs of a decode step while moe_ffn read its group sizes to the
+# host (PERF.md section 5): qwen3-moe at 8 layers
+HOST_READ_DECODE_SYNCS = {"qwen3-moe-235b-a22b": 14}
+
+
+def sync_free_moe(eng, td, pd):
+    """One engine decode step of ``eng`` with every ``moe_ffn`` call in it
+    under ``torch.cuda.set_sync_debug_mode("error")`` (the rest of the
+    step -- the cache-write index, the sampled rows' host copy -- reads
+    the card as before).  Returns (MoE calls, None) when no MoE layer
+    waited for the device, else (calls, the error)."""
+    import torch
+    from repro_torch.models import layers as L
+    inner, calls = L.moe_ffn, []
+
+    def strict(*a, **k):
+        calls.append(1)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    L.moe_ffn = strict
+    try:
+        eng.decode(td, pd)
+        err = None
+    except RuntimeError as e:
+        err = str(e)[:300]
+    finally:
+        L.moe_ffn = inner
+    return len(calls), err
+
+
 def profile_moe_engine(name, eng, prompt, n_moe):
     """Profile one 256-token prefill and one decode step of ``eng`` (slot
     0, the other slots idle) and log their busy share, launches, host
-    syncs (one per MoE layer expected, beside the engine's own reads) and
+    syncs (in all, the engine's own reads; none inside ``moe_ffn``) and
     the kernel time of the experts' products against the attention
-    kernels."""
+    kernels; then run one decode step with its MoE layers under the sync
+    debug mode.  Returns the checks."""
     B = eng.max_slots
     tokens = np.zeros((B, len(prompt)), np.int32)
     positions = np.full((B, len(prompt)), -1, np.int32)
@@ -2510,6 +2741,7 @@ def profile_moe_engine(name, eng, prompt, n_moe):
     td = np.zeros((B, 1), np.int32)
     pd = np.full((B, 1), -1, np.int32)
     td[0, 0], pd[0, 0] = prompt[-1], len(prompt)
+    checks = {}
     for label, fn in ((f"prefill T={len(prompt)}",
                        lambda: eng.prefill(tokens, positions)),
                       ("decode step", lambda: eng.decode(td, pd))):
@@ -2521,16 +2753,29 @@ def profile_moe_engine(name, eng, prompt, n_moe):
                 f"(not measured)")
             continue
         k = prof["kernel_s"]
+        was = (f" ({HOST_READ_DECODE_SYNCS[name]} with the group sizes "
+               f"read to the host)" if label == "decode step"
+               and name in HOST_READ_DECODE_SYNCS else "")
         log(f"[moe] {name} {label}: wall {prof['wall_s']:.4f} s, kernels "
             f"{k:.4f} s, busy share {k / prof['wall_s']:.3f}; kernel "
             f"launches {prof['launches']} (port kernels {json.dumps(port)});"
-            f" host syncs {prof['syncs']} ({n_moe} MoE layers), memcpy "
+            f" host syncs {prof['syncs']}{was}, inside moe_ffn "
+            f"{prof['syncs_in_moe_ffn']} ({n_moe} MoE layers), memcpy "
             f"calls {prof['memcpys']}; moe_ffn {prof['moe_ffn_s']:.4f} s, of "
             f"it grouped_ffn (expert GEMMs) {prof['grouped_ffn_s']:.4f} s "
             f"({prof['grouped_ffn_s'] / k:.3f} of kernel time); attention "
             f"kernels {prof['attention_s']:.5f} s "
             f"({prof['attention_s'] / k:.4f})")
+        checks[f"{name} {label}: no host sync inside moe_ffn"] = (
+            prof["syncs_in_moe_ffn"] == 0)
+    calls, err = sync_free_moe(eng, td, pd)
+    log(f"[moe] {name}: a decode step's {calls} moe_ffn calls under "
+        f"set_sync_debug_mode('error'): "
+        f"{'nothing raised' if err is None else err}")
+    checks[f"{name}: a decode step's moe_ffn calls raise nothing under "
+           f"sync debug mode 'error'"] = err is None and calls == n_moe
     eng.reset_slot(0)
+    return checks
 
 
 # ---------------------------------------------------------------------------
@@ -2579,7 +2824,7 @@ def cross_launches(cfg, n_forwards, n_decode):
     one ``partial_prefill_attention`` or ``decode_attention`` per causal
     self-attention layer; nothing else."""
     n = self_attention_layers(cfg)
-    want = {k: 0 for k in KERNEL_INFO}
+    want = {k: 0 for k in kernel_modules()}
     want.update(partial_prefill_attention=n_forwards * n,
                 decode_attention=n_decode * n)
     return want
@@ -3295,10 +3540,12 @@ def phase_train(device="cuda"):
     family's reduced config on the card against the host in float32;
     12d trains the tiny pair, saves it with the port's
     ``checkpoint.io.save`` and serves it from there with
-    ``launch.serve``; 12e: none of the six kernels launches during 12a-d
-    (the kernels have no gradient; the attention families train on the
-    blocked path, mamba2 under "pallas" on the plain scan), and a train
-    step under ``attn_impl="pallas"`` on an attention family raises."""
+    ``launch.serve``; 12e: no attention or SSD kernel launches during
+    12a-d (they have no gradient; the attention families train on the
+    blocked path, mamba2 under "pallas" on the plain scan), the MoE steps
+    of 12c run ``grouped_mm`` and ``grouped_mm_wgrad`` (the experts'
+    products and their gradients on the card), and a train step under
+    ``attn_impl="pallas"`` on an attention family raises."""
     from repro_torch.models import steps as S
     from repro_torch.tree import tree_map
 
@@ -3311,11 +3558,14 @@ def phase_train(device="cuda"):
     checks.update(train_parity(device))
     checks.update(train_tiny_pair(device))
     launched = read_launches()
-    checks["12e: no kernel launched while training"] = not any(
-        launched.values())
+    checks["12e: no attention or SSD kernel launched while training"] = \
+        not any(v for k, v in launched.items() if k not in GROUPED)
+    checks["12e: 12c's MoE steps ran grouped_mm and grouped_mm_wgrad"] = \
+        all(launched[k] > 0 for k in GROUPED)
     cfg, params, batch = parity_case("tiny-slm", "pallas")
     params = tree_map(lambda t: t.to(device), params)
     batch = {k: v.to(device) for k, v in batch.items()}
+    reset_launches()
     try:
         S.loss_and_grad(cfg, params, batch)
         refused = False
@@ -3502,7 +3752,7 @@ def phase_mesh(device="cuda"):
     experts' capacity), 13ii counts and times llama3.2-1b's decode step
     from ``dryrun.build_step`` with real weights; then, the group torn
     down, 13iii writes one production-mesh record (256 fake ranks,
-    ``meta``) for llama3.2-1b ``decode_32k``.  None of the six kernels
+    ``meta``) for llama3.2-1b ``decode_32k``.  None of the port's kernels
     may launch (the dry run decodes with the naive attention, and
     ``moe_ffn_ep`` has no kernel)."""
     import torch.distributed as dist
@@ -3610,7 +3860,8 @@ def main() -> int:
             if p == 2:
                 main_recs = out
             # each kernel's launches come from the path that runs it
-            path = {3: DENSE_PATH, 5: PAGED_PATH, 6: SSM_PATH}.get(p, ())
+            path = {3: DENSE_PATH, 5: PAGED_PATH, 6: SSM_PATH,
+                    10: MOE_PATH}.get(p, ())
             launches.update({k: out[k] for k in path})
             log(f"[phase {p}] ok in {time.perf_counter() - t0:.1f} s")
     except Exception as e:  # report which phase failed, then exit non-zero

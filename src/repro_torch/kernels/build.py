@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("decode_gqa", "partial_prefill", "attn_importance", "ssd_scan")
+KERNELS = ("decode_gqa", "partial_prefill", "attn_importance", "ssd_scan",
+           "grouped_mm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +42,10 @@ SIGNATURES = {
     },
     "ssd_scan": {
         "ssd_scan_launch": [_P] * 12 + [_I] * 7 + [_P],
+    },
+    "grouped_mm": {
+        "grouped_mm_launch": [_P] * 4 + [_I] * 6 + [_P],
+        "grouped_mm_wgrad_launch": [_P] * 4 + [_I] * 5 + [_P],
     },
 }
 

@@ -10,7 +10,11 @@ stands for.  Ops on ``FakeTensor`` arguments are DTensor's sharding
 propagation working out output shapes, not work; they are skipped.
 
   * ``flops``: dot and convolution FLOPs, by
-    ``torch.utils.flop_counter``'s formulas;
+    ``torch.utils.flop_counter``'s formulas, and the port's grouped
+    product (``repro_torch::grouped_mm`` and its ``grouped_mm_wgrad``,
+    the counterpart of ``lax.ragged_dot``) at 2 M K N each: every row
+    counted, as the shapes give it (on ``meta`` the group sizes are not
+    known); ``flops_by_op``: the same, by op name;
   * ``bytes``: operands plus result of each op -- the reference's per-op
     approximation; in eager mode each op is a kernel.  View and
     allocation-only ops move nothing;
@@ -47,6 +51,15 @@ _COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
 _DOTS = {"mm", "addmm", "bmm", "baddbmm", "addbmm", "mv", "addmv", "dot",
          "vdot", "linear", "convolution", "_convolution", "_grouped_mm",
          "_scaled_mm"}
+# the port's own dot-like ops (custom ops in the "repro_torch" namespace):
+# FLOPs from the operand shapes.  grouped_mm(x (M, K), w, ends, trans_w)
+# -> (M, N); grouped_mm_wgrad(x (M, K), dy (M, N), ends) -> (E, K, N)
+_PORT_FLOPS = {
+    "grouped_mm": lambda x, w, ends, trans_w, out_val: (
+        2 * x.shape[0] * x.shape[1] * out_val.shape[1]),
+    "grouped_mm_wgrad": lambda x, dy, ends, out_val: (
+        2 * x.shape[0] * x.shape[1] * dy.shape[1]),
+}
 # ops that move no bytes: allocation and metadata
 _FREE = {"empty", "empty_like", "empty_strided", "detach", "alias",
          "lift_fresh", "wait_tensor", "_wrap_tensor_autograd",
@@ -75,6 +88,7 @@ class CostCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.flops = 0.0
+        self.flops_by_op: dict = {}
         self.bytes = 0.0
         self.collective_bytes = 0.0
         self.collective_by_kind: dict = {}
@@ -125,14 +139,24 @@ class CostCounter(TorchDispatchMode):
             self.collective_by_kind[kind] = (
                 self.collective_by_kind.get(kind, 0) + b)
         elif func._overloadpacket in flop_registry:
-            self.flops += flop_registry[func._overloadpacket](
-                *args, **kwargs, out_val=out)
+            self._count(name, flop_registry[func._overloadpacket](
+                *args, **kwargs, out_val=out))
+        elif func.namespace == "repro_torch" and name in _PORT_FLOPS:
+            self._count(name, _PORT_FLOPS[name](*args, **kwargs,
+                                                out_val=out))
         elif name in _DOTS:
             self.unresolved_dots += 1
         return out
 
+    def _count(self, name: str, flops) -> None:
+        self.flops += flops
+        self.flops_by_op[name] = self.flops_by_op.get(name, 0) + flops
+
     def result(self) -> dict:
-        return {"flops": float(self.flops), "bytes": float(self.bytes),
+        return {"flops": float(self.flops),
+                "flops_by_op": {k: float(v)
+                                for k, v in self.flops_by_op.items()},
+                "bytes": float(self.bytes),
                 "collective_bytes": float(self.collective_bytes),
                 "collective_by_kind": dict(self.collective_by_kind),
                 "unresolved_dots": self.unresolved_dots,

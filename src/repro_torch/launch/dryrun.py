@@ -17,8 +17,9 @@ Usage:
 
 Writes one JSON per combination under ``results/dryrun_torch/``.  The
 record keeps the reference's keys where they mean something here:
-``ok``, ``flops_per_dev``, ``bytes_per_dev``, ``collective_bytes_per_dev``,
-``collective_by_kind``, ``memory`` (``argument_bytes``: the local shard
+``ok``, ``flops_per_dev`` (and ``flops_by_op``, its split by op),
+``bytes_per_dev``, ``collective_bytes_per_dev``, ``collective_by_kind``,
+``memory`` (``argument_bytes``: the local shard
 bytes of the arguments; ``output_bytes``; ``temp_bytes``: the peak live
 bytes the step allocated beyond the arguments), ``roofline``.  The
 reference's ``lower_s`` and ``compile_s`` become one ``trace_s``; its
@@ -230,6 +231,7 @@ def trace_record(cfg, shape, mesh) -> dict:
         _, cost, memory, _ = measure(fn, args)
         rec = {"ok": True, "trace_s": round(time.perf_counter() - t0, 2),
                "flops_per_dev": cost["flops"],
+               "flops_by_op": cost["flops_by_op"],
                "bytes_per_dev": cost["bytes"],
                "collective_bytes_per_dev": cost["collective_bytes"],
                "collective_by_kind": cost["collective_by_kind"],

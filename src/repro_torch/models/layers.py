@@ -50,6 +50,7 @@ from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.attn_importance import attn_with_importance
 from repro_torch.kernels.decode_gqa import (decode_attention,
                                             decode_attention_paged)
+from repro_torch.kernels.grouped_mm import grouped_mm
 from repro_torch.kernels.partial_prefill import (
     partial_prefill_attention, partial_prefill_attention_paged)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
@@ -577,54 +578,55 @@ def moe_route(router, xf, top_k: int):
     return probs, top_p / top_p.sum(-1, keepdim=True), top_e
 
 
-def grouped_ffn(p, xs, group_sizes: list[int]):
+def grouped_ffn(p, xs, ends):
     """The experts' SwiGLU over rows sorted by expert (the reference's
-    three ``lax.ragged_dot`` products): expert ``e`` takes the next
-    ``group_sizes[e]`` rows; experts with no row are skipped.  The
-    experts' outputs are concatenated in ascending expert order (autograd
-    can follow that; a product written through ``out=`` it cannot)."""
-    ys, start = [], 0
-    for e, n in enumerate(group_sizes):
-        if n:
-            seg = xs[start:start + n]
-            h = silu(seg @ p["w_gate"][e]) * (seg @ p["w_up"][e])
-            ys.append(h @ p["w_down"][e])
-            start += n
-    return torch.cat(ys)
+    three ``lax.ragged_dot`` products): rows ``[ends[e - 1], ends[e])`` go
+    through expert ``e``, rows past ``ends[-1]`` give zeros.  ``ends``
+    (int32) stays on xs's device: on the card ``grouped_mm`` reads it
+    there, so the host never waits for the group sizes."""
+    g = grouped_mm(xs, p["w_gate"], ends)
+    u = grouped_mm(xs, p["w_up"], ends)
+    return grouped_mm(_gate(g, u, ends), p["w_down"], ends)
 
 
-def moe_ffn(p, x, *, top_k: int):
-    """Token-choice top-k MoE (``repro/models/layers.py:577``): every
-    assignment is computed (no capacity, nothing dropped), so a padding
-    row of a bucketed feed cannot change a real row.
+def _gate(g, u, ends):
+    """silu(g) * u.  On the CPU it runs per expert segment (the ends read
+    there, as ``grouped_mm``'s plain version reads them): a vectorised
+    elementwise op on the CPU rounds a tensor's last few elements through
+    its scalar path, so per segment keeps the bits that per-expert
+    SwiGLUs give."""
+    if g.device.type != "cpu":
+        return silu(g) * u
+    b = [0, *ends.tolist(), g.shape[0]]
+    segs = [silu(g[s:t]) * u[s:t] for s, t in zip(b, b[1:]) if t > s]
+    return torch.cat(segs) if segs else silu(g) * u
+
+
+def _expert_sum(p, xs_src, top_p, top_e, n_groups: int, top_k: int):
+    """Each token's sum, over its k choices, of routing weight times its
+    expert's output, for the choices with an expert id in [0, n_groups);
+    an id of ``n_groups`` stands for an expert held elsewhere and adds
+    nothing.  ``xs_src`` (N, d) are the tokens the experts read; ``p``
+    holds the n_groups experts' stacks.
 
     The assignments are sorted by expert with a stable sort (as
-    ``jnp.argsort``), so each expert's rows are one contiguous segment;
-    the group sizes are read to the host once per call (one sync) for
-    :func:`grouped_ffn`.  The routing weights are cast to the products'
-    dtype before the multiply.  The reference's scatter-add adds a
-    token's k weighted rows into zeros in sorted order, i.e. by ascending
-    expert id; here they are gathered back and added in that order, so
-    the sum is the same and deterministic on the card (``index_add_``
-    there adds with atomics, in no fixed order).
-    x: (B, T, d).  Returns (out (B, T, d), the Switch load-balance aux
-    loss, f32)."""
-    B, T, d = x.shape
-    E = p["router"].shape[1]
-    xf = x.reshape(-1, d)
-    N = xf.shape[0]
-    probs, top_p, top_e = moe_route(p["router"], xf, top_k)
+    ``jnp.argsort``), so each expert's rows are one contiguous segment,
+    and the segments' running ends stay on the device.  The routing
+    weights are cast to the products' dtype before the multiply.  The
+    reference's scatter-add adds a token's k weighted rows into zeros in
+    sorted order, i.e. by ascending expert id; here they are gathered
+    back and added in that order, so the sum is the same and
+    deterministic on the card (``index_add_`` there adds with atomics, in
+    no fixed order).  Returns (out (N, d), counts (n_groups + 1,))."""
+    N = xs_src.shape[0]
     flat_e = top_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
-    if flat_e.is_meta or isinstance(flat_e, DTensor):
-        raise NotImplementedError(
-            "moe_ffn reads its group sizes to the host; a meta or DTensor "
-            "trace has none (moe_ffn_ep takes a mesh whose data axes "
-            "divide the batch)")
-    # (bincount would read the largest id to the host: a second sync)
-    counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+    # (bincount would read the largest id to the host)
+    counts = torch.zeros(n_groups + 1, dtype=torch.long,
+                         device=flat_e.device).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
-    ys = grouped_ffn(p, xf[order // top_k], counts.tolist())
+    ends = torch.cumsum(counts[:n_groups], 0).to(torch.int32)
+    ys = grouped_ffn(p, xs_src[order // top_k], ends)
     w = top_p.reshape(-1)[order].to(ys.dtype)
     contrib = ys * w[:, None]
     # sorted position of each (token, choice); a token's experts are
@@ -633,15 +635,115 @@ def moe_ffn(p, x, *, top_k: int):
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.numel(), device=order.device)
     rank = rank.view(N, top_k).sort(dim=1).values
-    out = torch.zeros_like(xf)
+    out = torch.zeros_like(xs_src)
     for j in range(top_k):
         out = out + contrib[rank[:, j]]
+    return out, counts
+
+
+def moe_ffn(p, x, *, top_k: int):
+    """Token-choice top-k MoE (``repro/models/layers.py:577``): every
+    assignment is computed (no capacity, nothing dropped), so a padding
+    row of a bucketed feed cannot change a real row.  The experts'
+    products are ``grouped_mm`` over the assignments sorted by expert
+    (:func:`_expert_sum`), with the group offsets on the device: no host
+    sync, and the call traces on ``meta``.  Over DTensors it runs as
+    :func:`_moe_ffn_sharded`.
+    x: (B, T, d).  Returns (out (B, T, d), the Switch load-balance aux
+    loss, f32)."""
+    if any(isinstance(t, DTensor) for t in (x, p["router"], p["w_gate"],
+                                            p["w_up"], p["w_down"])):
+        return _moe_ffn_sharded(p, x, top_k=top_k)
+    B, T, d = x.shape
+    E = p["router"].shape[1]
+    xf = x.reshape(-1, d)
+    probs, top_p, top_e = moe_route(p["router"], xf, top_k)
+    out, counts = _expert_sum(p, xf, top_p, top_e, E, top_k)
     if "shared" in p:
         out = out + mlp(p["shared"], xf)
     # Switch-style load-balance auxiliary loss
-    frac = counts.float() / flat_e.numel()
+    frac = counts[:E].float() / top_e.numel()
     aux = E * torch.sum(frac * probs.mean(0))
     return out.reshape(B, T, d), aux
+
+
+def _moe_ffn_sharded(p, x, *, top_k: int):
+    """:func:`moe_ffn` over DTensors (``moe_ffn_ep`` hands it a batch the
+    data axes do not divide, e.g. the dry run's B = 1 ``long_500k``): a
+    ``local_map`` region over the ``moe_mesh`` hint's mesh (else the
+    mesh of the first DTensor, its non-"model" axes taken as data axes).
+
+    Layout: experts E over "model" (each model rank owns E / msz
+    experts; where msz does not divide E they are replicated), the
+    experts' d gathered over "data" as the region takes them, tokens over
+    the data axes where they divide the batch, else replicated.  Each
+    model rank computes, through ``grouped_mm`` on its own experts and
+    its own ends, every assignment to its experts -- all of them, as
+    ``moe_ffn`` does, with no capacity -- and one all-reduce over "model"
+    sums the experts' contributions.  The experts are never gathered
+    over "model".  Inputs that every rank of an axis holds alike but that
+    feed a computation differing over it go through ``shardctx.pvary``
+    (the router and the experts over the token axes, the tokens and
+    their routing weights over "model"), so their gradients are summed
+    over those ranks.  The aux loss's ``frac`` and ``mean_prob`` are
+    averaged over the token axes.  The shared expert is added after."""
+    hint = shardctx.get("moe_mesh")
+    if hint is None:
+        raise ValueError("moe_ffn over DTensors needs the moe_mesh hint "
+                         "(shardctx.hints(moe_mesh=(mesh, data axes)))")
+    mesh, data_axes = hint
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    B, T, d = x.shape
+    E = p["router"].shape[1]
+    msz = sizes.get("model", 1)
+    e_axes = ("model",) if msz > 1 and E % msz == 0 else ()
+    E_loc = E // msz if e_axes else E
+    dsz = math.prod(sizes.get(a, 1) for a in data_axes)
+    tok_axes = tuple(data_axes) if dsz > 1 and B % dsz == 0 else ()
+    n_tok = dsz if tok_axes else 1
+
+    def region(xl, router, wg, wu, wd):
+        # xl: (B / n_tok, T, d); router: (d, E); wg/wu: (E_loc, d, dff);
+        # wd: (E_loc, dff, d)
+        xf = xl.reshape(-1, d)
+        probs, top_p, top_e = moe_route(
+            shardctx.pvary(router, mesh, tok_axes), xf, top_k)
+        r = mesh.get_local_rank("model") if e_axes else 0
+        e_loc = top_e - r * E_loc
+        e_loc = torch.where((e_loc >= 0) & (e_loc < E_loc), e_loc, E_loc)
+        experts = {n: shardctx.pvary(t, mesh, tok_axes) for n, t in
+                   (("w_gate", wg), ("w_up", wu), ("w_down", wd))}
+        out, _ = _expert_sum(
+            experts, shardctx.pvary(xf, mesh, e_axes),
+            shardctx.pvary(top_p, mesh, e_axes), e_loc, E_loc, top_k)
+        out = shardctx.psum(out, mesh, e_axes)
+        counts = torch.zeros(E, dtype=torch.long, device=xf.device)
+        counts = counts.scatter_add(0, top_e.reshape(-1),
+                                    torch.ones_like(top_e.reshape(-1)))
+        frac = shardctx.psum(counts.float() / top_e.numel(), mesh,
+                             tok_axes) / n_tok
+        mean_prob = shardctx.psum(probs.mean(0), mesh, tok_axes) / n_tok
+        aux = E * torch.sum(frac * mean_prob)
+        return out.reshape(xl.shape).to(xl.dtype), aux
+
+    def place(**shards):
+        return tuple(Shard(shards[a]) if a in shards else Replicate()
+                     for a in mesh.mesh_dim_names)
+
+    tokens = place(**{a: 0 for a in tok_axes})
+    experts = place(**{a: 0 for a in e_axes})
+    plain = not isinstance(x, DTensor)
+    out, aux = local_map(
+        region, out_placements=(tokens, place()),
+        in_placements=(tokens, place(), experts, experts, experts),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(*(shardctx.as_dtensor(t, mesh) for t in
+        (x, p["router"], p["w_gate"], p["w_up"], p["w_down"])))
+    if plain:
+        out, aux = out.full_tensor(), aux.to_local()
+    if "shared" in p:
+        out = out + mlp(p["shared"], x.reshape(-1, d)).reshape(B, T, d)
+    return out, aux
 
 
 def moe_ffn_ep(p, x, *, top_k: int, capacity_factor: float = 2.0):

@@ -331,10 +331,14 @@ def test_1x1_flops_match_hlo_analysis(arch):
 
 
 def test_moe_ffn_refuses_a_shape_only_trace():
-    """moe_ffn reads its group sizes to the host: a meta trace has none
-    (ROADMAP P3: the dry run's moe long_500k cells)."""
+    """moe_ffn no longer refuses a shape-only trace (ROADMAP P3, fixed;
+    the name is kept from when it did): it keeps its group offsets on the
+    device, where grouped_mm reads them, so a meta trace needs no values
+    and gives the output's shape and dtype and a scalar f32 aux (the dry
+    run's moe long_500k cells)."""
     cfg = get_config("qwen3-moe-235b-a22b").reduced()
     p = {k: v[0] for k, v in SP.params_specs(cfg)["layers"]["moe"].items()}
     x = torch.empty(1, 4, cfg.d_model, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="group sizes"):
-        L.moe_ffn(p, x, top_k=cfg.top_k)
+    out, aux = L.moe_ffn(p, x, top_k=cfg.top_k)
+    assert out.shape == x.shape and out.dtype == x.dtype and out.is_meta
+    assert aux.shape == () and aux.dtype == torch.float32

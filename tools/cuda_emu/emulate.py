@@ -1,6 +1,6 @@
 """Run the port's CUDA kernels on the CPU, for logic checks without a card.
 
-    PYTHONPATH=src python tools/cuda_emu/emulate.py [attn_importance] [ssd_scan] [partial_prefill] [decode_gqa] [paged]
+    PYTHONPATH=src python tools/cuda_emu/emulate.py [attn_importance] [ssd_scan] [partial_prefill] [decode_gqa] [paged] [grouped_mm]
 
 Each kernel source under ``src/repro_torch/kernels/csrc`` is rewritten for
 the stub headers beside this file (the kernels' inline-PTX helpers become
@@ -21,6 +21,11 @@ the shapes the MoE configs add: at C = 8 the 40 packed rows of a g = 5
 group leave the last 16-row tile half empty; and their g = 1 cases over
 16 heads of 64 (whisper-medium's MHA decoder), the shapes the audio
 family adds: at C = 8 one group's 8 rows fill half a 16-row tile.
+``grouped_mm`` (the MoE layer's grouped product, its transposed-weight
+input gradient and its weight gradient) runs at small widths with empty
+groups, a group longer than one 64-row chunk (forward) or than three
+32-row stages (weight gradient), chunks shared by several blocks, unused
+tail rows, and K and N that are not whole tiles.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from repro_torch.kernels import DTYPE_CODES
 from repro_torch.kernels import attn_importance as AI
 from repro_torch.kernels import build
 from repro_torch.kernels import decode_gqa as DG
+from repro_torch.kernels import grouped_mm as GM
 from repro_torch.kernels import paged as PG
 from repro_torch.kernels import partial_prefill as PP
 from repro_torch.kernels import ssd_scan as SS
@@ -393,11 +399,69 @@ def check_paged() -> bool:
     return ok
 
 
+def _ends(sizes):
+    return torch.tensor(np.cumsum(sizes), dtype=torch.int32)
+
+
+def check_grouped_mm() -> bool:
+    """Forward, transposed forward (the input gradient) and weight
+    gradient against their plain versions; a second call must give the
+    same bits, and NaN-filled outputs must come back fully written."""
+    lib = load("grouped_mm")
+    fwd, wgrad = lib.grouped_mm_launch, lib.grouped_mm_wgrad_launch
+    # (group sizes, tail rows past ends[-1], K, N): empty groups; one group
+    # of 70 rows (two 64-row chunks; 100 rows: four 32-row wgrad stages);
+    # K 40 and N 72 cut the last tile; one row in all (a decode's group);
+    # M 292 > 256: three blocks share each group's chunks, a 210-row group
+    # of four chunks and 70 tail rows of two
+    cases = [((3, 0, 70, 5), 4, 64, 128), ((0, 16, 0, 1), 0, 40, 72),
+             ((100, 2), 3, 72, 40), ((0, 0, 1), 2, 32, 64),
+             ((2, 210, 0, 10), 70, 16, 64)]
+    ok = True
+    for sizes, tail, K, N in cases:
+        E, M = len(sizes), sum(sizes) + tail
+        ends = _ends(sizes)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(4)
+            x = torch.randn(M, K, generator=g).to(dtype)
+            w = (torch.randn(E, K, N, generator=g) / K ** 0.5).to(dtype)
+            wt = w.transpose(1, 2).contiguous()         # (E, N, K)
+            dy = torch.randn(M, N, generator=g).to(dtype)
+            runs = []
+            for _ in range(2):
+                y = torch.full((M, N), float("nan"), dtype=dtype)
+                yt = torch.full((M, N), float("nan"), dtype=dtype)
+                dw = torch.full((E, K, N), float("nan"), dtype=dtype)
+                _call(fwd, x.data_ptr(), w.data_ptr(), ends.data_ptr(),
+                      y.data_ptr(), M, K, N, E, 0, DTYPE_CODES[dtype], None)
+                _call(fwd, x.data_ptr(), wt.data_ptr(), ends.data_ptr(),
+                      yt.data_ptr(), M, K, N, E, 1, DTYPE_CODES[dtype], None)
+                _call(wgrad, x.data_ptr(), dy.data_ptr(), ends.data_ptr(),
+                      dw.data_ptr(), M, K, N, E, DTYPE_CODES[dtype], None)
+                runs.append((y, yt, dw))
+            refs = (GM.grouped_mm_ref(x, w, ends),
+                    GM.grouped_mm_ref(x, wt, ends, trans_w=True),
+                    GM.grouped_mm_wgrad_ref(x, dy, ends))
+            tol = TOL[dtype]
+            errs, good = {}, True
+            for label, out, out2, ref in zip(("y", "y (trans)", "dw"),
+                                             *runs, refs):
+                e = float((out.float() - ref.float()).abs().max())
+                errs[label] = e
+                good &= (e <= tol + tol * float(ref.float().abs().max())
+                         and torch.equal(out, out2))
+            good &= bool((runs[0][0][M - tail:] == 0).all())
+            ok &= _report(f"grouped_mm sizes {sizes} tail {tail} K {K} N {N} "
+                          f"{dtype}", errs, good)
+    return ok
+
+
 CHECKS = {"attn_importance": check_attn_importance,
           "ssd_scan": check_ssd_scan,
           "partial_prefill": check_partial_prefill,
           "decode_gqa": check_decode_gqa,
-          "paged": check_paged}
+          "paged": check_paged,
+          "grouped_mm": check_grouped_mm}
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
