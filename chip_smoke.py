@@ -23,9 +23,10 @@ same harness.  It also holds the grouped product (``grouped_mm``, the
 counterpart of ``lax.ragged_dot`` in the MoE layer) at phase 10's
 shapes -- qwen3-moe's decode (32 rows) and 256-token prefill (2,048
 rows), llama4-maverick's (4 and 256 rows), each product direction, group
-sizes from a skewed routing draw with empty groups and one group past a
-64-row chunk -- and its input and weight gradients at qwen3-moe's
-prefill, in both dtypes, a second call bit-identical, timed beside
+sizes from a skewed routing draw with empty groups and groups past a
+128-row tile, one model rank's share with rows past the last group --
+and its input and weight gradients at qwen3-moe's prefill, in both
+dtypes, a second call bit-identical, timed beside
 ``torch._grouped_mm`` and a per-expert ``torch.matmul`` loop.  Phase 3 serves
 ``run_synera`` and ``run_cloud_centric`` end to end with the paper's
 SLM/LLM pair at full width on the dense cache (random weights from a
@@ -138,6 +139,7 @@ from __future__ import annotations
 import gc
 import hashlib
 import json
+import re
 import signal
 import subprocess
 import sys
@@ -901,6 +903,9 @@ def phase_ssd_kernel():
 # backward products at qwen3-moe's prefill; and the engine's bucketed
 # prefill as phase 10 profiles it: 4 slots x 256, three of them padding,
 # whose 768 identical tokens all take the same 8 experts (GMM_PADDED).
+# Appended later (earlier cases keep their seeds): the decode as rank 1
+# of a 2-rank model axis sees it (GMM_RANKS: 64 experts, the other
+# rank's rows past ends[-1]), and the down product's weight gradient.
 GMM_CASES = [
     ("qwen3-moe decode, gate/up", 128, 8, 32, 4096, 1536, "fwd", True),
     ("qwen3-moe decode, down", 128, 8, 32, 1536, 4096, "fwd", False),
@@ -917,10 +922,48 @@ GMM_CASES = [
      "wgrad", False),
     ("qwen3-moe prefill 4 x 256, 3 slots padding, gate/up", 128, 8, 8192,
      4096, 1536, "fwd", False),
+    ("qwen3-moe decode, gate/up, model rank 1 of 2", 128, 8, 32, 4096, 1536,
+     "fwd", False),
+    ("qwen3-moe prefill 256, down wgrad", 128, 8, 2048, 1536, 4096, "wgrad",
+     False),
 ]
 GMM_PADDED = {8192: 768}         # rows M -> padding tokens among them
 GMM_SKEW = 2.0                   # std of the experts' logit bias in the draw
-GMM_CHUNK = 64                   # the kernel's rows per chunk (BM)
+# Cases drawn for one rank of a model axis, as _moe_ffn_sharded runs them:
+# the rank's E / ranks experts keep their groups, and every assignment to
+# another rank's experts is sorted past ends[-1] (rows the product zeros).
+GMM_RANKS = {"qwen3-moe decode, gate/up, model rank 1 of 2": (1, 2)}
+
+
+def gmm_draw(i):
+    """Case i's experts E, group sizes (E,) and rows M (rows past
+    sum(sizes) are the tail)."""
+    label, E, k, M = GMM_CASES[i][:4]
+    sizes = gmm_group_sizes(E, k, M, seed=500 + i)
+    if label in GMM_RANKS:
+        rank, ranks = GMM_RANKS[label]
+        E //= ranks
+        sizes = sizes[rank * E:(rank + 1) * E]
+    return E, sizes, M
+
+
+def ptxas_summary(report, match):
+    """(entry function, registers, spill stores, spill loads) of each
+    kernel in an nvcc -Xptxas -v report whose name contains ``match``."""
+    out, fn = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn and match in fn:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn and match in fn:
+            out.append((fn, int(m.group(1)), *spills))
+            fn = None
+    return out
 
 
 def gmm_group_sizes(E, k, M, seed):
@@ -955,29 +998,69 @@ def _gmm_library(op, a):
     return fn, None
 
 
+def _gmm_group_share(out, ref, bounds, wgrad, atol, rtol):
+    """The largest max |out - ref| / (atol + rtol max |ref|) over the
+    groups, each on its own scale: the forward's groups with rows (their
+    rows of the output), every expert's dw for the weight gradient (an
+    empty group's must be zeros: its limit is atol).  At most 1: within
+    TOL."""
+    import torch
+    if wgrad:
+        diff = (out.float() - ref.float()).abs().amax(dim=(1, 2))
+        top = ref.float().abs().amax(dim=(1, 2))
+    else:
+        starts = [int(b) for b, c in zip(bounds[:-1], bounds[1:]) if c > b]
+        if not starts:
+            return 0.0
+        used = int(bounds[-1])
+        d = (out[:used].float() - ref[:used].float()).abs().amax(dim=1)
+        r = ref[:used].float().abs().amax(dim=1)
+        d, r = d.cpu().numpy(), r.cpu().numpy()
+        diff = torch.from_numpy(np.maximum.reduceat(d, starts))
+        top = torch.from_numpy(np.maximum.reduceat(r, starts))
+    return float((diff / (atol + rtol * top)).max())
+
+
 def phase_grouped_mm():
     """grouped_mm (forward, the input gradient's transposed product) and
     grouped_mm_wgrad against their plain versions on the card.  Group
-    sizes come from a skewed routing draw: empty groups, and one group
-    past a 64-row chunk at qwen3-moe's prefill.  The check is on the
-    output's scale, as a product's rounding is: max |kernel - plain| <=
-    atol + rtol max |plain| (TOL); a second call must give the same bits.
+    sizes come from a skewed routing draw: empty groups, groups past a
+    128-row tile (qwen3-moe's prefill, the padded bucket), one model
+    rank's share with rows past ``ends[-1]``, weight-gradient groups over
+    one 32-row stage whose size is not a multiple of 8.  The check is on
+    each group's own scale, as a product's rounding is: for every group
+    with rows (the forward: its rows of the output) and every expert (the
+    weight gradient: its dw), max |kernel - plain| <= atol + rtol max
+    |plain| over that group (TOL), so a fault the size of a small group's
+    values fails however large another group's are; a second call must
+    give the same bits.
     Times: kernel (L2 cold and warm), plain version, one
     ``torch._grouped_mm`` call (bf16; the library time) and a loop of
-    per-expert ``torch.matmul`` calls over host-known segments (logged).
-    The bound counts the bytes of the experts that have rows, each once,
-    and 2 K N flops a row.  Returns the bf16 main-path record."""
+    per-expert ``torch.matmul`` calls over host-known segments (logged),
+    the kernel / library ratio and the share of the bound.  Rows past
+    ``ends[-1]`` must come back exactly zero.  The bound counts the bytes
+    of the experts that have rows, each once, and 2 K N flops a row.
+    Logs the grouped kernels' registers and spills (ptxas).  Returns the
+    bf16 main-path record."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import grouped_mm as GM
+    for fn, regs, st, ld in ptxas_summary(build.build_all()["grouped_mm"],
+                                          "grouped_mm"):
+        log(f"[kernels] ptxas {fn}: {regs} registers, spill stores {st} "
+            f"bytes, spill loads {ld} bytes")
     main, ok = {}, True
-    empty_seen = long_seen = False
-    for i, (label, E, k, M, K, N, op, is_main) in enumerate(GMM_CASES):
-        sizes = gmm_group_sizes(E, k, M, seed=500 + i)
+    empty_seen = long_seen = odd_seen = tail_seen = False
+    for i, (label, _, k, M, K, N, op, is_main) in enumerate(GMM_CASES):
+        E, sizes, M = gmm_draw(i)
         bounds = np.concatenate([[0], np.cumsum(sizes)])
         segs = [(e, int(bounds[e]), int(bounds[e + 1])) for e in range(E)
                 if sizes[e]]
         empty_seen |= bool((sizes == 0).any())
-        long_seen |= bool(sizes.max() > GMM_CHUNK)
+        long_seen |= bool(sizes.max() > GM.FWD_ROWS)
+        tail_seen |= op != "wgrad" and int(bounds[-1]) < M
+        odd_seen |= op == "wgrad" and bool(
+            ((sizes > GM.WG_ROWS) & (sizes % 8 != 0)).any())
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device="cuda").manual_seed(600 + i)
             a = dict(ends=torch.tensor(bounds[1:], dtype=torch.int32,
@@ -1012,10 +1095,13 @@ def phase_grouped_mm():
             atol, rtol = TOL[str(dtype)]
             err = float((out.float() - ref.float()).abs().max())
             scale = float(ref.float().abs().max())
-            good = (err <= atol + rtol * scale and torch.equal(again, out)
-                    and bool(torch.isfinite(out.float()).all()))
-            esz = x.element_size()
+            group_share = _gmm_group_share(out, ref, bounds, op == "wgrad",
+                                           atol, rtol)
             rows = int(bounds[-1])
+            good = (group_share <= 1.0 and torch.equal(again, out)
+                    and bool(torch.isfinite(out.float()).all())
+                    and (op == "wgrad" or bool((out[rows:] == 0).all())))
+            esz = x.element_size()
             used_w = len(segs) * K * N
             nbytes = esz * (x.numel() + dy.numel()
                             + (E * K * N if op == "wgrad" else used_w))
@@ -1024,17 +1110,30 @@ def phase_grouped_mm():
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_flops = flops / PEAK_FLOPS[str(dtype)] * 1e3
             lib, why = _gmm_library(op, a)
+            if op == "wgrad" and dtype == torch.bfloat16:
+                # the card's practical write rate: a fill of dw's bytes
+                fill = torch.empty_like(ref)
+                log(f"[kernels] {label}: a fill of dw's "
+                    f"{fill.numel() * esz} bytes takes "
+                    f"{_time_ms(fill.zero_)} ms")
+                del fill
+            ms = _time_ms(kern)
+            lib_ms = _time_ms(lib) if lib is not None else None
+            bound = max(t_bytes, t_flops)
             rec = dict(
                 name="grouped_mm_wgrad" if op == "wgrad" else "grouped_mm",
                 case=label, op=op, dtype=str(dtype), shape=[E, k, M, K, N],
                 groups_with_rows=len(segs), largest_group=int(sizes.max()),
-                ok=good, max_abs_err=err, ref_max_abs=scale,
-                ms=_time_ms(kern), ms_l2_warm=_time_ms(kern, cold=False),
+                tail_rows=M - rows, ok=good, max_abs_err=err,
+                ref_max_abs=scale, worst_group_err_over_limit=group_share,
+                ms=ms,
+                ms_l2_warm=_time_ms(kern, cold=False),
                 plain_ms=_time_ms(plain, iters=5),
                 expert_loop_ms=_time_ms(loop, iters=5),
-                library_ms=_time_ms(lib) if lib is not None else None,
-                library_note=why, bytes=nbytes, flops=flops,
-                bound_ms=max(t_bytes, t_flops),
+                library_ms=lib_ms, library_note=why,
+                vs_library=ms / lib_ms if lib_ms else None,
+                bound_share=bound / ms, bytes=nbytes, flops=flops,
+                bound_ms=bound,
                 bound_by="bytes" if t_bytes >= t_flops else "operations")
             log("[kernels] " + json.dumps(rec))
             ok = ok and good
@@ -1043,10 +1142,13 @@ def phase_grouped_mm():
             del a, x, w, dy, ends, out, again, ref, kern, plain, loop, lib
             torch.cuda.empty_cache()
     log(f"[kernels] grouped_mm draws: an empty group {empty_seen}, a group "
-        f"past {GMM_CHUNK} rows {long_seen}")
-    if not (ok and empty_seen and long_seen):
+        f"past {GM.FWD_ROWS} rows {long_seen}, rows past ends[-1] "
+        f"{tail_seen}, a weight-gradient group over {GM.WG_ROWS} rows and "
+        f"not a multiple of 8 {odd_seen}")
+    if not (ok and empty_seen and long_seen and tail_seen and odd_seen):
         raise RuntimeError("grouped_mm disagrees with its plain version (or "
-                           "the draws missed an empty or a long group)")
+                           "the draws missed an empty, a long, an odd group "
+                           "or tail rows)")
     return main
 
 

@@ -44,8 +44,8 @@ SIGNATURES = {
         "ssd_scan_launch": [_P] * 12 + [_I] * 7 + [_P],
     },
     "grouped_mm": {
-        "grouped_mm_launch": [_P] * 4 + [_I] * 6 + [_P],
-        "grouped_mm_wgrad_launch": [_P] * 4 + [_I] * 5 + [_P],
+        "grouped_mm_launch": [_P] * 5 + [_I] * 8 + [_P],
+        "grouped_mm_wgrad_launch": [_P] * 4 + [_I] * 6 + [_P],
     },
 }
 

@@ -24,8 +24,16 @@ On the CPU each takes its plain version (the ends read on the host, one
 tensor it launches the kernel or raises.  :func:`grouped_mm_ref` and
 :func:`grouped_mm_wgrad_ref` are the plain versions the tests and
 ``chip_smoke.py`` hold the kernels against.
+
+The bf16 kernels run a persistent grid over a list of work units that
+each CTA derives from ``ends`` on the card; :func:`tile_walk` is that
+list's plain specification (the order, the tiles, the K splits), and
+:func:`fwd_splits` / :func:`fwd_ctas` / :func:`wgrad_ctas` give the
+split count and the grid from the shapes and the SM count alone.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +45,135 @@ launches = 0          # grouped_mm, forward and input gradient
 wgrad_launches = 0    # grouped_mm_wgrad
 
 ALIGN = 8             # K and N: whole 16-byte copies of bf16 rows
+
+# The bf16 kernels' tiles (csrc/grouped_mm.cu).  Forward: FWD_COLS weight
+# columns by up to FWD_ROWS of a group's rows, FWD_K of K a stage, x read
+# in the smallest box of ROW_BOXES rows that holds the tile's rows.
+# Weight gradient: WG_TILE x WG_TILE of dw, WG_ROWS of the group a stage.
+# tests/test_torch_grouped_mm.py runs that source's kernels on the CPU
+# (tools/cuda_emu) and holds the units they take to tile_walk(), so these
+# stay the kernel's own.
+FWD_COLS, FWD_ROWS, FWD_K = 128, 128, 64
+ROW_BOXES = (16, 32, 64, 128)
+WG_TILE, WG_ROWS = 128, 32
+# K splits (forward): enough units for SPLIT_WAVES per SM at the most
+# tiles the shapes allow, each split at least MIN_SPLIT_STAGES stages
+SPLIT_WAVES, MIN_SPLIT_STAGES = 16, 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _most_row_tiles(M: int, E: int) -> int:
+    """An upper bound on sum over groups of ceil(rows / FWD_ROWS): each
+    non-empty group adds at most one partial tile."""
+    return min(E, M) + _cdiv(M, FWD_ROWS)
+
+
+def fwd_splits(M: int, K: int, N: int, E: int, sms: int) -> int:
+    """The forward's K split count, from the shapes and the SM count."""
+    tiles = _most_row_tiles(M, E) * _cdiv(N, FWD_COLS)
+    want = SPLIT_WAVES * sms // tiles
+    return max(1, min(want, _cdiv(K, FWD_K) // MIN_SPLIT_STAGES))
+
+
+def fwd_ctas(M: int, N: int, E: int, splits: int, sms: int) -> int:
+    """The forward's grid: one CTA per SM, fewer when the shapes allow
+    fewer units (the tail's zero tiles included when splits == 1)."""
+    nct = _cdiv(N, FWD_COLS)
+    most = _most_row_tiles(M, E) * nct * splits
+    if splits == 1:
+        most += _cdiv(M, FWD_ROWS) * nct
+    return max(1, min(sms, most))
+
+
+def wgrad_ctas(K: int, N: int, E: int, sms: int) -> int:
+    """The weight gradient's grid: one CTA per SM, at most one per tile."""
+    return max(1, min(sms, E * _cdiv(K, WG_TILE) * _cdiv(N, WG_TILE)))
+
+
+class WorkItem(NamedTuple):
+    """One work unit of a bf16 kernel.
+
+    Forward: rows ``[r0, r1)`` of group ``expert`` (``expert == E``: rows
+    past ``ends[-1]``, written as zeros, ``k0 == k1 == 0``), output
+    columns ``[n0, n1)``, the contraction over K ``[k0, k1)`` of split
+    ``split``, x read in a box of ``box`` rows.  Weight gradient: ``dw
+    [expert]`` rows ``[k0, k1)`` and columns ``[n0, n1)``, summed over the
+    group's rows ``[r0, r1)`` (empty: a tile of zeros), ``box`` rows a
+    stage."""
+    expert: int
+    r0: int
+    r1: int
+    k0: int
+    k1: int
+    n0: int
+    n1: int
+    split: int
+    box: int
+
+
+def group_rows(ends, M: int) -> list[tuple[int, int]]:
+    """Rows [lo, hi) of each group, then of the tail past ends[-1], clamped
+    as the kernels clamp them (0 <= lo <= hi <= M)."""
+    b = [int(v) for v in ends]
+    out = []
+    for e in range(len(b) + 1):
+        if e == len(b):
+            lo, hi = b[-1], M
+        else:
+            lo, hi = (b[e - 1] if e else 0), b[e]
+        lo = min(max(lo, 0), M)
+        out.append((lo, min(max(hi, lo), M)))
+    return out
+
+
+def tile_walk(ends, M: int, K: int, N: int, *, wgrad: bool = False,
+              splits: int = 1) -> list[WorkItem]:
+    """The bf16 kernels' work units in the order the CUDA scheduler makes
+    them: unit u runs on CTA ``u % ctas`` as its ``u // ctas``-th unit.
+
+    Forward: expert by expert (ascending), each with rows giving
+    ceil(rows / FWD_ROWS) row tiles x ceil(N / FWD_COLS) column tiles x
+    ``splits`` K splits, ordered column tile, then split, then row tile
+    (the row tiles of one weight slab run side by side, so its bytes come
+    from HBM about once); with ``splits == 1`` the tail past ``ends[-1]``
+    follows as expert E, with ``splits > 1`` the sum pass writes it.
+    Split s covers K blocks [s nkb / S, (s + 1) nkb / S) of FWD_K.
+    Weight gradient: every expert, ceil(K / WG_TILE) x ceil(N / WG_TILE)
+    tiles, K tile then N tile."""
+    rows = group_rows(ends, M)
+    E = len(rows) - 1
+    items = []
+    if wgrad:
+        for e in range(E):
+            lo, hi = rows[e]
+            for k0 in range(0, K, WG_TILE):
+                for n0 in range(0, N, WG_TILE):
+                    items.append(WorkItem(e, lo, hi, k0, min(k0 + WG_TILE, K),
+                                          n0, min(n0 + WG_TILE, N), 0,
+                                          WG_ROWS))
+        return items
+    nkb = _cdiv(K, FWD_K)
+    for e in range(E + 1 if splits == 1 else E):
+        lo, hi = rows[e]
+        S = 1 if e == E else splits
+        for n0 in range(0, N, FWD_COLS):
+            for s in range(S):
+                for r0 in range(lo, hi, FWD_ROWS):
+                    r1 = min(r0 + FWD_ROWS, hi)
+                    box = next(b for b in ROW_BOXES if b >= r1 - r0)
+                    k0, k1 = ((0, 0) if e == E else
+                              (s * nkb // S * FWD_K,
+                               min((s + 1) * nkb // S * FWD_K, K)))
+                    items.append(WorkItem(e, r0, r1, k0, k1, n0,
+                                          min(n0 + FWD_COLS, N), s, box))
+    return items
+
+
+def _sms(t) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def _bounds(ends) -> list[int]:
@@ -105,9 +242,18 @@ def _launch_mm(x, w, ends, trans_w):
     y = x.new_empty(M, N)
     if M == 0:
         return y
+    splits, ctas, part = 1, 1, None
+    if x.dtype == torch.bfloat16:
+        sms = _sms(x)
+        splits = fwd_splits(M, K, N, E, sms)
+        ctas = fwd_ctas(M, N, E, splits, sms)
+        if splits > 1:      # f32 partials, summed in split order
+            part = torch.empty(splits, M, N, dtype=torch.float32,
+                               device=x.device)
     fn = build.library("grouped_mm").grouped_mm_launch
-    err = fn(x.data_ptr(), w.data_ptr(), ends.data_ptr(), y.data_ptr(), M, K,
-             N, E, int(trans_w), code, stream_ptr(x))
+    err = fn(x.data_ptr(), w.data_ptr(), ends.data_ptr(), y.data_ptr(),
+             None if part is None else part.data_ptr(), M, K, N, E,
+             int(trans_w), code, splits, ctas, stream_ptr(x))
     raise_on_error("grouped_mm", err)
     launches += 1
     return y
@@ -124,9 +270,10 @@ def _launch_wgrad(x, dy, ends):
                          f"not match")
     code = _check("grouped_mm_wgrad", (x, dy), ends, (K, N))
     dw = x.new_empty(E, K, N)
+    ctas = wgrad_ctas(K, N, E, _sms(x)) if x.dtype == torch.bfloat16 else 1
     fn = build.library("grouped_mm").grouped_mm_wgrad_launch
     err = fn(x.data_ptr(), dy.data_ptr(), ends.data_ptr(), dw.data_ptr(), M,
-             K, N, E, code, stream_ptr(x))
+             K, N, E, code, ctas, stream_ptr(x))
     raise_on_error("grouped_mm_wgrad", err)
     wgrad_launches += 1
     return dw

@@ -1,16 +1,23 @@
 // CPU stand-in for <cuda_runtime.h>, for tools/cuda_emu/emulate.py: one
 // std::thread per CUDA thread, a std::barrier for __syncthreads() and a
 // per-warp barrier plus exchange buffer for the warp collectives,
-// ldmatrix and mma.sync.  cp.async is a synchronous copy (a missing wait
-// does not show).  For logic checks only: nothing here is timed.
+// ldmatrix and mma.sync; mbarriers and named barriers (bar.sync) for the
+// TMA kernels (cuda.h beside this file holds the TMA and wgmma stand-ins).
+// cp.async and TMA are synchronous copies (a missing wait does not show).
+// For logic checks only: nothing here is timed.
 #pragma once
 #include <math.h>
 
 #include <algorithm>
 #include <barrier>
+#include <chrono>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 using std::max;
@@ -21,6 +28,8 @@ using std::min;
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __grid_constant__
+#define CUDART_VERSION 12080
 
 struct uint3 { unsigned x = 0, y = 0, z = 0; };
 struct dim3 {
@@ -49,6 +58,10 @@ enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class K>
 inline cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
 
 inline thread_local uint3 threadIdx, blockIdx;
 inline thread_local dim3 blockDim, gridDim;
@@ -61,13 +74,32 @@ inline float __uint_as_float(unsigned u) {
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+template <class V>
+V __ldg(const V* p) { return *p; }
+// one tick per 100 ns: a wait bound of 2e10 cycles (~10 s on the card)
+// is ~2,000 s here, where 288 threads share a few cores
+inline long long clock64() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+             .count() /
+         100;
+}
+inline void __trap() { std::abort(); }
 
 namespace emu {
+struct Mbar {  // an mbarrier: arrivals and TMA bytes still due, phase
+  int count = 0, pending = 0, phase = 0;
+  long long tx = 0;
+};
 struct Block {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> wbar;
   std::vector<uint64_t> xch;              // 8 words per lane
   std::vector<unsigned char> smem;
+  std::mutex mu;                          // guards mbars and nbars
+  std::map<uint32_t, Mbar> mbars;         // by shared address
+  std::map<int, std::unique_ptr<std::barrier<>>> nbars;  // bar.sync ids
 };
 inline thread_local Block* cur = nullptr;
 inline unsigned char* smem() { return cur->smem.data(); }
@@ -168,6 +200,69 @@ inline void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
 }
 }  // namespace emu
 
+namespace emu {
+// mbarrier phases: a phase ends when every arrival and every expected
+// TMA byte has come; try_wait(parity) is true once the phase of that
+// parity has ended (the current phase's parity differs)
+inline void mbar_done(Mbar& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1;
+    b.pending = b.count;
+  }
+}
+inline void mbar_init(uint32_t a, int count) {
+  std::lock_guard<std::mutex> g(cur->mu);
+  Mbar& b = cur->mbars[a];
+  b.count = b.pending = count;
+  b.phase = 0;
+  b.tx = 0;
+}
+inline void mbar_arrive(uint32_t a, long long tx) {
+  std::lock_guard<std::mutex> g(cur->mu);
+  Mbar& b = cur->mbars.at(a);
+  b.tx += tx;
+  --b.pending;
+  mbar_done(b);
+}
+inline void mbar_complete_tx(uint32_t a, long long bytes) {
+  std::lock_guard<std::mutex> g(cur->mu);
+  Mbar& b = cur->mbars.at(a);
+  b.tx -= bytes;
+  mbar_done(b);
+}
+inline bool mbar_try_wait(uint32_t a, uint32_t parity) {
+  static thread_local long polls = 0;
+  bool done;
+  {
+    std::lock_guard<std::mutex> g(cur->mu);
+    const Mbar& b = cur->mbars.at(a);
+    done = (uint32_t)b.phase != parity;
+    if (done) {
+      polls = 0;
+    } else if (++polls == 100000) {  // ~2 s: say who waits on what
+      std::fprintf(stderr,
+                   "emu: block %u thread %u waits on mbarrier @%u parity %u "
+                   "(phase %d, arrivals due %d, bytes due %lld)\n",
+                   blockIdx.x, threadIdx.x, a, parity, b.phase, b.pending,
+                   b.tx);
+    }
+  }
+  // a waiter sleeps rather than spins: 288 threads share a few cores
+  if (!done) std::this_thread::sleep_for(std::chrono::microseconds(20));
+  return done;
+}
+inline void named_bar(int id, int count) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> g(cur->mu);
+    auto& p = cur->nbars[id];
+    if (!p) p = std::make_unique<std::barrier<>>(count);
+    b = p.get();
+  }
+  b->arrive_and_wait();
+}
+}  // namespace emu
+
 inline void __syncthreads() { emu::cur->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu::wsync(); }
 template <class V>
@@ -181,6 +276,11 @@ V __shfl_sync_from(V v, int src) {
   V out;
   std::memcpy(&out, &r, sizeof(V));
   return out;
+}
+template <class V>
+V __shfl_up_sync(unsigned, V v, int d) {
+  const V from = __shfl_sync_from(v, std::max(emu::lane_id() - d, 0));
+  return emu::lane_id() >= d ? from : v;
 }
 template <class V>
 V __shfl_xor_sync(unsigned, V v, int o) {

@@ -23,9 +23,14 @@ group leave the last 16-row tile half empty; and their g = 1 cases over
 family adds: at C = 8 one group's 8 rows fill half a 16-row tile.
 ``grouped_mm`` (the MoE layer's grouped product, its transposed-weight
 input gradient and its weight gradient) runs at small widths with empty
-groups, a group longer than one 64-row chunk (forward) or than three
-32-row stages (weight gradient), chunks shared by several blocks, unused
-tail rows, and K and N that are not whole tiles.
+groups, a group longer than one 128-row tile (forward) or than six
+32-row stages (weight gradient), stages cut inside a group, unused tail
+rows, K and N that are not whole tiles, and (bf16) K splits and a
+persistent grid whose CTAs walk several units; its bf16 kernels' TMA,
+mbarrier and wgmma helpers run through the stand-ins in ``cuda.h``, and
+the units each CTA takes (the source's ``GROUPED_MM_TRACE_UNIT`` hook)
+must be ``kernels/grouped_mm.py:tile_walk``'s; each group is held to
+the tolerance on its own scale.
 """
 from __future__ import annotations
 
@@ -55,7 +60,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 # emulated bodies of the kernels' inline-PTX helpers (attn_common.cuh's
 # cp.async helpers, partial_prefill.cu's ldmatrix and mma)
 BODIES = {
-    "smem_addr": "{ return 0u; }",
+    "smem_addr": "{ return (unsigned)((const unsigned char*)p"
+                 " - emu::smem()); }",
     "cp_async16": "{ if (fill) std::memcpy(dst, src, 16);"
                   " else std::memset(dst, 0, 16); }",
     "cp_async4": "{ std::memcpy(dst, src, 4); }",
@@ -64,7 +70,58 @@ BODIES = {
     "ldsm_x4": "{ emu::ldsm(p, r0, r1, r2, r3, false); }",
     "ldsm_x4_trans": "{ emu::ldsm(p, r0, r1, r2, r3, true); }",
     "mma_bf16": "{ emu::mma(c, a, b0, b1); }",
+    # grouped_mm.cu's TMA / mbarrier / wgmma helpers (cuda.h, cuda_runtime.h)
+    "mbar_init": "{ emu::mbar_init(bar, (int)count); }",
+    "fence_barrier_init": "{}",
+    "mbar_expect_tx": "{ emu::mbar_arrive(bar, bytes); }",
+    "mbar_arrive": "{ emu::mbar_arrive(bar, 0); }",
+    "mbar_try_wait": "{ return emu::mbar_try_wait(bar, parity); }",
+    "prefetch_tmap": "{}",
+    "tma_load_2d": "{ const int c[3] = {c0, c1, 0};"
+                   " emu::tma_load(dst, map, bar, c); }",
+    "tma_load_3d": "{ const int c[3] = {c0, c1, c2};"
+                   " emu::tma_load(dst, map, bar, c); }",
+    "tma_store_3d": "{ const int c[3] = {c0, c1, c2};"
+                    " emu::tma_store(map, src, c); }",
+    "bulk_commit": "{}",
+    "bulk_wait_read": "{}",
+    "bulk_wait_all": "{}",
+    "fence_proxy_async": "{}",
+    "named_bar_sync": "{ emu::named_bar(id, count); }",
+    "wgmma_fence": "{}",
+    "wgmma_commit": "{}",
+    # wgmma is warpgroup-collective: the wait returns once all four warps
+    # have issued, so after it every thread of the group has passed its
+    # stage's full-barrier wait (a private barrier id, past the 16 real)
+    "wgmma_wait0": "{ emu::named_bar(16 + threadIdx.x / 128, 128); }",
+    "fence_acc": "{}",
+    "wgmma": "{ emu::wgmma(d, N, da, db, TA, TB); }",
 }
+
+
+# grouped_mm.cu's walk hook: every unit a CTA takes (its CTA, then the
+# unit's index and tile_walk()'s fields), read back through emu_walk()
+WALK_HOOK = r"""#include <mutex>
+#include <vector>
+namespace emu_walk_log {
+inline std::mutex mu;
+inline std::vector<int> rows;
+}
+#define GROUPED_MM_TRACE_UNIT(...)                                 \
+  do {                                                             \
+    const int f_[] = {(int)blockIdx.x, __VA_ARGS__};               \
+    const std::lock_guard<std::mutex> l_(emu_walk_log::mu);        \
+    emu_walk_log::rows.insert(emu_walk_log::rows.end(), f_, f_ + 11); \
+  } while (0)
+extern "C" int emu_walk(int* out, int cap) {  // ints copied; then cleared
+  const std::lock_guard<std::mutex> l(emu_walk_log::mu);
+  const int n = (int)emu_walk_log::rows.size();
+  for (int i = 0; i < n && i < cap; ++i) out[i] = emu_walk_log::rows[i];
+  emu_walk_log::rows.clear();
+  return n;
+}
+"""
+WALK_FIELDS = 11
 
 
 def _replace_body(src: str, name: str) -> str:
@@ -89,11 +146,13 @@ def load(name: str) -> ctypes.CDLL:
         text = f.read_text()
         for helper in BODIES:
             text = _replace_body(text, helper)
-        text = text.replace(
-            "extern __shared__ __align__(16) unsigned char smem_raw[];",
-            "unsigned char* smem_raw = emu::smem();")
+        text = re.sub(
+            r"extern __shared__ __align__\(\d+\) unsigned char smem_raw\[\];",
+            "unsigned char* smem_raw = emu::smem();", text)
         text = re.sub(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\(",
                       r"emu::launch(\1, \2, ", text, flags=re.S)
+        if f.name == "grouped_mm.cu":
+            text = WALK_HOOK + text
         (srcdir / f.name).write_text(text)
     lib = OUT / f"lib{name}.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
@@ -403,56 +462,107 @@ def _ends(sizes):
     return torch.tensor(np.cumsum(sizes), dtype=torch.int32)
 
 
+def _walk_is_spec(lib, ends, M, K, N, *, wgrad, splits, ctas) -> bool:
+    """The units the last launch's CTAs took are tile_walk()'s, in its
+    order: unit u, and only it, on CTA u % ctas."""
+    cap = 1 << 20
+    buf = (ctypes.c_int * cap)()
+    n = lib.emu_walk(buf, cap)
+    if n > cap:
+        raise RuntimeError(f"emu_walk: {n} ints past the buffer's {cap}")
+    got = sorted((tuple(buf[i:i + WALK_FIELDS])
+                  for i in range(0, n, WALK_FIELDS)), key=lambda r: r[1])
+    want = GM.tile_walk(ends, M, K, N, wgrad=wgrad, splits=splits)
+    return ([r[1] for r in got] == list(range(len(want)))
+            and all(r[0] == r[1] % ctas for r in got)
+            and [r[2:] for r in got] == [tuple(w) for w in want])
+
+
+def _group_err(out, ref, ends, wgrad, tol) -> tuple[float, bool]:
+    """max |out - ref| and whether every group is within tol + tol
+    max |ref| over its own rows (forward) or its own dw (weight
+    gradient), so a fault the size of a small group's values shows."""
+    b = [0] + [int(v) for v in ends]
+    parts = ([(out[e], ref[e]) for e in range(len(b) - 1)] if wgrad else
+             [(out[s:t], ref[s:t]) for s, t in zip(b, b[1:]) if t > s])
+    good, worst = True, 0.0
+    for o, r in parts:
+        e = float((o.float() - r.float()).abs().max())
+        worst = max(worst, e)
+        good &= e <= tol + tol * float(r.float().abs().max())
+    return worst, good
+
+
 def check_grouped_mm() -> bool:
     """Forward, transposed forward (the input gradient) and weight
-    gradient against their plain versions; a second call must give the
-    same bits, and NaN-filled outputs must come back fully written."""
+    gradient against their plain versions, group by group; a second call
+    must give the same bits, and NaN-filled outputs must come back fully
+    written.  bf16 runs the TMA kernels on a grid of 3 CTAs (each walks
+    several units, and the rings wrap), with 1 and with 3 K splits, and
+    the units each CTA takes must be tile_walk()'s."""
     lib = load("grouped_mm")
+    lib.emu_walk.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.emu_walk.restype = ctypes.c_int
     fwd, wgrad = lib.grouped_mm_launch, lib.grouped_mm_wgrad_launch
     # (group sizes, tail rows past ends[-1], K, N): empty groups; one group
-    # of 70 rows (two 64-row chunks; 100 rows: four 32-row wgrad stages);
-    # K 40 and N 72 cut the last tile; one row in all (a decode's group);
-    # M 292 > 256: three blocks share each group's chunks, a 210-row group
-    # of four chunks and 70 tail rows of two
+    # of 70 rows; K 40 and N 72 cut the last tile; one row in all (a
+    # decode's group); a 210-row group (two 128-row tiles, 7 wgrad stages
+    # of 32, the last cut at 18 rows) and 70 tail rows; K 256 (four
+    # 64-wide stages, three splits of them) with groups of 13 and 45 rows
     cases = [((3, 0, 70, 5), 4, 64, 128), ((0, 16, 0, 1), 0, 40, 72),
              ((100, 2), 3, 72, 40), ((0, 0, 1), 2, 32, 64),
-             ((2, 210, 0, 10), 70, 16, 64)]
+             ((2, 210, 0, 10), 70, 16, 64), ((13, 0, 45), 5, 256, 136)]
     ok = True
     for sizes, tail, K, N in cases:
         E, M = len(sizes), sum(sizes) + tail
         ends = _ends(sizes)
         for dtype in (torch.float32, torch.bfloat16):
+            variants = [(1, 1)] if dtype == torch.float32 else [(1, 3), (3, 3)]
             g = torch.Generator().manual_seed(4)
             x = torch.randn(M, K, generator=g).to(dtype)
             w = (torch.randn(E, K, N, generator=g) / K ** 0.5).to(dtype)
             wt = w.transpose(1, 2).contiguous()         # (E, N, K)
             dy = torch.randn(M, N, generator=g).to(dtype)
-            runs = []
-            for _ in range(2):
-                y = torch.full((M, N), float("nan"), dtype=dtype)
-                yt = torch.full((M, N), float("nan"), dtype=dtype)
-                dw = torch.full((E, K, N), float("nan"), dtype=dtype)
-                _call(fwd, x.data_ptr(), w.data_ptr(), ends.data_ptr(),
-                      y.data_ptr(), M, K, N, E, 0, DTYPE_CODES[dtype], None)
-                _call(fwd, x.data_ptr(), wt.data_ptr(), ends.data_ptr(),
-                      yt.data_ptr(), M, K, N, E, 1, DTYPE_CODES[dtype], None)
-                _call(wgrad, x.data_ptr(), dy.data_ptr(), ends.data_ptr(),
-                      dw.data_ptr(), M, K, N, E, DTYPE_CODES[dtype], None)
-                runs.append((y, yt, dw))
             refs = (GM.grouped_mm_ref(x, w, ends),
                     GM.grouped_mm_ref(x, wt, ends, trans_w=True),
                     GM.grouped_mm_wgrad_ref(x, dy, ends))
-            tol = TOL[dtype]
-            errs, good = {}, True
-            for label, out, out2, ref in zip(("y", "y (trans)", "dw"),
-                                             *runs, refs):
-                e = float((out.float() - ref.float()).abs().max())
-                errs[label] = e
-                good &= (e <= tol + tol * float(ref.float().abs().max())
-                         and torch.equal(out, out2))
-            good &= bool((runs[0][0][M - tail:] == 0).all())
-            ok &= _report(f"grouped_mm sizes {sizes} tail {tail} K {K} N {N} "
-                          f"{dtype}", errs, good)
+            for splits, ctas in variants:
+                part = (torch.full((splits, M, N), float("nan"))
+                        if splits > 1 else None)
+                bf16 = dtype == torch.bfloat16
+                runs, walks = [], True
+                for _ in range(2):
+                    y = torch.full((M, N), float("nan"), dtype=dtype)
+                    yt = torch.full((M, N), float("nan"), dtype=dtype)
+                    dw = torch.full((E, K, N), float("nan"), dtype=dtype)
+                    for out, wk, trans in ((y, w, 0), (yt, wt, 1)):
+                        _call(fwd, x.data_ptr(), wk.data_ptr(),
+                              ends.data_ptr(), out.data_ptr(), _ptr(part), M,
+                              K, N, E, trans, DTYPE_CODES[dtype], splits,
+                              ctas, None)
+                        if bf16:
+                            walks &= _walk_is_spec(lib, ends, M, K, N,
+                                                   wgrad=False, splits=splits,
+                                                   ctas=ctas)
+                    _call(wgrad, x.data_ptr(), dy.data_ptr(), ends.data_ptr(),
+                          dw.data_ptr(), M, K, N, E, DTYPE_CODES[dtype], ctas,
+                          None)
+                    if bf16:
+                        walks &= _walk_is_spec(lib, ends, M, K, N, wgrad=True,
+                                               splits=1, ctas=ctas)
+                    runs.append((y, yt, dw))
+                errs, good = {}, walks
+                for label, out, out2, ref in zip(("y", "y (trans)", "dw"),
+                                                 *runs, refs):
+                    errs[label], close = _group_err(out, ref, ends,
+                                                    label == "dw", TOL[dtype])
+                    good &= close and torch.equal(out, out2)
+                good &= bool((runs[0][0][M - tail:] == 0).all())
+                good &= bool((runs[0][1][M - tail:] == 0).all())
+                ok &= _report(f"grouped_mm sizes {sizes} tail {tail} K {K} "
+                              f"N {N} {dtype} splits {splits} ctas {ctas}"
+                              + (f", walk as tile_walk {walks}" if bf16
+                                 else ""), errs, good)
     return ok
 
 
