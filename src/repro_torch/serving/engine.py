@@ -678,11 +678,24 @@ class CloudEngine:
         # legacy/debug full-logits path (identity tests)
         self._raw_verify = make_verify_step(cfg, window=window)
         self._raw_decode = make_decode_step(cfg, window=window)
-        # telemetry: host transfer + shape accounting
+        # telemetry: host transfer + shape accounting; forwards of the
+        # fused step and the rows they ran (slots x bucket) and carried a
+        # position (>= 0), by entry point
         self.bytes_to_host = 0
         self._calls = {"feed": 0, "prefill": 0, "decode": 0,
                        "feed_logits": 0, "decode_logits": 0}
+        self._forwards = {"feed": 0, "prefill": 0}
+        self._rows_run = {"feed": 0, "prefill": 0}
+        self._rows_real = {"feed": 0, "prefill": 0}
         self._specializations: set = set()
+        # program tracing (serving/trace.py), installed by the
+        # scheduler's set_tracer(..., program=True): engine.forward /
+        # engine.to_host spans name the scheduler's open sched.iteration
+        # span (trace_parent) and carry its request ids (trace_rids)
+        self.tracer = NULL_TRACER
+        self.trace_replica = 0
+        self.trace_parent = -1
+        self.trace_rids = ()
         # a replica marked dead must never serve again: any further
         # compute dispatch raises
         self.dead = False
@@ -700,10 +713,16 @@ class CloudEngine:
     # -- telemetry ------------------------------------------------------
     @property
     def compile_stats(self) -> dict:
-        """Which (step, bucket) shapes this engine ran, and how often each
-        entry point ran — the bucket ladder bounds the set of shapes."""
+        """Which (step, bucket) shapes this engine ran, how often each
+        entry point ran — the bucket ladder bounds the set of shapes —
+        and, for ``feed`` and ``prefill``, the fused forwards they ran
+        and those forwards' rows: all (``rows_run``, padding included)
+        and those with a position (``rows_real``)."""
         return dict(
             calls=dict(self._calls),
+            forwards=dict(self._forwards),
+            rows_run=dict(self._rows_run),
+            rows_real=dict(self._rows_real),
             buckets=sorted({b for kind, b in self._specializations
                             if kind in ("fused", "fused_greedy")}),
             specializations=sorted(self._specializations),
@@ -968,11 +987,19 @@ class CloudEngine:
         return np.pad(arr, ((0, 0), (0, pad)), constant_values=fill)
 
     def _run_fused(self, tokens, positions, targets, sel_idx, last_local,
-                   with_dists=True):
-        """One fused sub-chunk; returns device outputs.  Callers copy to
-        the host only what they need."""
-        C = tokens.shape[1]
+                   with_dists=True, *, entry: str):
+        """One fused sub-chunk of ``entry`` (``feed`` / ``prefill``);
+        returns device outputs.  Callers copy to the host only what they
+        need."""
+        tr = self.tracer
+        if tr.enabled:
+            t0 = tr.clock.now_ms
+        B, C = tokens.shape
         Cb = self._bucket_of(C)
+        real = int((positions >= 0).sum())
+        self._forwards[entry] += 1
+        self._rows_run[entry] += B * Cb
+        self._rows_real[entry] += real
         self._specializations.add(
             ("fused" if with_dists else "fused_greedy", Cb))
         step = self._step if with_dists else self._step_greedy
@@ -982,7 +1009,20 @@ class CloudEngine:
             self._dev(self._pad(positions, Cb, -1)),
             self._dev(self._pad(targets, Cb, -1)),
             self._dev(sel_idx), self._dev(last_local))
+        if tr.enabled:
+            tr.span(t0, tr.clock.now_ms, "engine.forward",
+                    replica=self.trace_replica, rids=self.trace_rids,
+                    parent=self.trace_parent,
+                    args={"entry": entry, "bucket": Cb, "rows_run": B * Cb,
+                          "rows_real": real})
         return out
+
+    def _to_host_span(self, t0: float, nbytes: int) -> None:
+        """Record one blocking read of a sub-chunk's rows (tracing on)."""
+        tr = self.tracer
+        tr.span(t0, tr.clock.now_ms, "engine.to_host",
+                replica=self.trace_replica, rids=self.trace_rids,
+                parent=self.trace_parent, nbytes=nbytes)
 
     # ------------------------------------------------------------------
     def feed(self, tokens: np.ndarray, positions: np.ndarray,
@@ -1019,8 +1059,10 @@ class CloudEngine:
             sub_sel = np.where(in_chunk, sel_idx - off, -1).astype(np.int32)
             res = self._run_fused(tokens[:, sl], positions[:, sl],
                                   targets[:, sl], sub_sel, zeros,
-                                  with_dists=need_dists)
+                                  with_dists=need_dists, entry="feed")
             if in_chunk.any():      # only selected rows cross to the host
+                if self.tracer.enabled:
+                    t0, b0 = self.tracer.clock.now_ms, moved_bytes
                 tok = _host(res[0], np.int32)
                 tok_acc = np.where(in_chunk, tok, tok_acc)
                 moved_bytes += tok.nbytes
@@ -1033,6 +1075,8 @@ class CloudEngine:
                                       _host(res[3], np.float32), kv_acc)
                     moved_bytes += (p_acc.nbytes + ki_acc.nbytes
                                     + kv_acc.nbytes)
+                if self.tracer.enabled:
+                    self._to_host_span(t0, moved_bytes - b0)
         self.bytes_to_host += moved_bytes
         return VerifyRows(token_id=tok_acc, p_draft=p_acc,
                           topk_idx=ki_acc, topk_val=kv_acc)
@@ -1060,15 +1104,19 @@ class CloudEngine:
             # only the last-row gather is consumed: the argmax-only step
             res = self._run_fused(tokens[:, sl], positions[:, sl],
                                   targets[:, sl], no_sel, local,
-                                  with_dists=False)
+                                  with_dists=False, entry="prefill")
             sel = (last_col >= off) & (last_col < off + w)
             if sel.any():
                 # gather on device only the slots whose LAST prompt row
                 # lives in this sub-chunk: one vocab row per prefilled slot
+                if self.tracer.enabled:
+                    t0 = self.tracer.clock.now_ms
                 idx = np.where(sel)[0]
                 rows = _host(res[4][self._dev(idx, torch.long)], np.float32)
                 out[idx] = rows
                 self.bytes_to_host += rows.nbytes
+                if self.tracer.enabled:
+                    self._to_host_span(t0, rows.nbytes)
         return out
 
     def decode(self, tokens: np.ndarray, positions: np.ndarray) -> DecodeRows:

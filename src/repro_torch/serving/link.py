@@ -171,9 +171,3 @@ class CostModel:
 
     def cost(self, avg_tbt_ms: float, cloud_token_frac: float) -> float:
         return (1.0 / self.packing_factor) * avg_tbt_ms * cloud_token_frac
-
-
-# Back-compat alias: the per-stream timeline moved to serving/trace.py,
-# where it gained exclusive stall-attribution buckets in place of the
-# old unstructured ``events`` tuple list.
-from repro_torch.serving.trace import StreamTimeline as Timeline  # noqa: E402

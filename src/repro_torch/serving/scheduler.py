@@ -128,17 +128,15 @@ class VerificationAwareScheduler:
         # tracing (serving/trace.py): every clock charge below becomes a
         # typed span tagged with the request ids / slot it served; the
         # NULL_TRACER default keeps the disabled path allocation-free
-        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.tracer = NULL_TRACER
+        self.trace_program = False
         self.replica = replica
-        if self.tracer.enabled:
-            alloc = getattr(engine, "allocator", None)
-            if alloc is not None:
-                alloc.tracer = self.tracer
-                alloc.trace_replica = replica
-            swp = getattr(engine, "swap_manager", None)
-            if swp is not None:
-                swp.tracer = self.tracer
-                swp.trace_replica = replica
+        if tracer is not None and tracer.enabled:
+            self.set_tracer(tracer)
+        # the open sched.iteration span (program tracing on): its start,
+        # its index
+        self._iter_t0 = 0.0
+        self._iter_span = -1
         policy = (preempt_policy
                   or getattr(getattr(engine, "cfg", None),
                              "preempt_policy", None)
@@ -185,6 +183,38 @@ class VerificationAwareScheduler:
         # means no stream can ever free blocks (all holders
         # non-restartable), which must fail loudly, not spin the clock
         self._defer_streak = 0
+
+    def set_tracer(self, tracer=None, *, program: bool = False) -> None:
+        """Install ``tracer`` (None: :data:`NULL_TRACER`, tracing off) on
+        this scheduler, the engine's block allocator and its swap
+        manager, so that a running scheduler can be traced for a stretch
+        and no longer.  With ``program``, also record the program spans
+        (``sched.iteration`` here, ``engine.*`` on the engine, which gets
+        the tracer too); without, the engine's tracer is removed.  The
+        tracer must run on this scheduler's clock."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.trace_program = program and self.tracer.enabled
+        self.engine.tracer = (self.tracer if self.trace_program
+                              else NULL_TRACER)
+        self.engine.trace_replica = self.replica
+        for part in (getattr(self.engine, "allocator", None),
+                     getattr(self.engine, "swap_manager", None)):
+            if part is not None:
+                part.tracer = self.tracer
+                part.trace_replica = self.replica
+
+    def _open_iteration(self, kind: str, rids: tuple, slots: int,
+                        tokens: int) -> None:
+        """Program tracing on: record this iteration's
+        ``sched.iteration`` span, open from the start of
+        ``run_iteration`` (closed there), and name it as the parent of
+        the engine's spans."""
+        self._iter_span = self.tracer.span(
+            self._iter_t0, self._iter_t0, "sched.iteration",
+            replica=self.replica, rids=rids, tokens=tokens,
+            args={"kind": kind, "slots": slots})
+        self.engine.trace_parent = self._iter_span
+        self.engine.trace_rids = rids
 
     @property
     def sim_ms(self) -> float:
@@ -300,6 +330,8 @@ class VerificationAwareScheduler:
         (shared-clock semantics), fast-forwards the clock to the next
         arrival and returns [] — callers loop while ``has_work()``.
         """
+        if self.trace_program:
+            self._iter_t0 = self.clock.now_ms
         self._swap_in_ready()
         now = self.clock.now_ms
         if self.prefill_q and self.free_slots and \
@@ -307,11 +339,15 @@ class VerificationAwareScheduler:
             evs = self._prefill_iteration(now)
             if evs:
                 self.iterations += 1
+                if self.trace_program:
+                    self.tracer.span_end(self._iter_span, self.clock.now_ms)
                 return evs
         if self.verify_q or self.active_verify:
             evs = self._verify_iteration(now)
             if evs is not None:
                 self.iterations += 1
+                if self.trace_program:
+                    self.tracer.span_end(self._iter_span, self.clock.now_ms)
                 return evs
         # Nothing executable at `now`: fast-forward to the next *future*
         # arrival.  Requests that have already arrived but are blocked
@@ -433,6 +469,13 @@ class VerificationAwareScheduler:
             # positions its filler has not yet written
             tokens[r.slot, m:T] = r.tokens[m:]
             positions[r.slot, m:T] = np.arange(m, T)
+        # shared prefix tokens are cache hits: neither fed nor charged;
+        # blocks adopted from the content-addressed host store are
+        # charged as H2D transfers instead (take_uncharged)
+        total = sum(len(r.tokens) - r.shared for r in batch)
+        if self.trace_program:
+            self._open_iteration("prefill", tuple(r.req_id for r in batch),
+                                 len(batch), total)
         # one full-vocab row per slot crosses to the host here (the
         # sampling verifier's pre-draft row); verify iterations never
         # transfer a vocab-sized tensor
@@ -442,10 +485,6 @@ class VerificationAwareScheduler:
         moved = getattr(self.engine, "bytes_to_host", 0) - b0
 
         events = []
-        # shared prefix tokens are cache hits: neither fed nor charged;
-        # blocks adopted from the content-addressed host store are
-        # charged as H2D transfers instead (take_uncharged)
-        total = sum(len(r.tokens) - r.shared for r in batch)
         self.prefill_fed_tokens += total
         adopted = self.swap.take_uncharged() if self.swap is not None else 0
         self.clock.advance(self.latency.prefill_ms(total)
@@ -528,6 +567,11 @@ class VerificationAwareScheduler:
                 self.tracer.span(t0, self.clock.now_ms, "sched",
                                  replica=self.replica)
             return None
+        total = sum(n for _, _, n in feeding)
+        if self.trace_program:
+            self._open_iteration("verify",
+                                 tuple(r.req_id for r, _, _ in feeding),
+                                 len(feeding), total)
         t_exec0 = self.clock.now_ms
         b0 = getattr(self.engine, "bytes_to_host", 0)
         if self.fused:
@@ -537,7 +581,6 @@ class VerificationAwareScheduler:
         else:
             logits = self.engine.feed_logits(tokens, positions)
         moved = getattr(self.engine, "bytes_to_host", 0) - b0
-        total = sum(n for _, _, n in feeding)
         self.clock.advance(self.latency.iteration_ms(total)
                            + self.latency.host_transfer_ms(moved))
         self.verify_iterations += 1

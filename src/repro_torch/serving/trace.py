@@ -1,19 +1,55 @@
 """Unified tracing layer: lifecycle spans, stall attribution, Perfetto.
 
-Every serving component (device coroutine, scheduler, swap tier, block
-allocator, router, gateway) stamps structured events through one shared
-:class:`Tracer` bound to the run's clock — ``SimClock`` and
-``RealClock`` expose the same ``now_ms`` axis (serving/link.py), so the
-recording code is identical under discrete-event simulation and
-wall-clock serving.  Three artifacts come out of the same event stream:
+Every serving component that acts (device coroutine, scheduler, cloud
+engine, swap tier, block allocator, router) stamps structured events
+through one shared :class:`Tracer` bound to the run's clock —
+``SimClock`` and ``RealClock`` expose the same ``now_ms`` axis
+(serving/link.py), so the recording code is identical under
+discrete-event simulation and wall-clock serving; the gateway only
+reads the tracer (``/v1/traces``, ``/metrics``).  Four artifacts come
+out of the same event stream:
 
-* **Engine-side spans** — every modeled cost the scheduler charges to
-  the shared clock (prefill / verify / decode iterations, swap D2H/H2D
+* **Charge spans** — every modeled cost the scheduler charges to the
+  shared clock (prefill / verify / decode iterations, swap D2H/H2D
   transfers, exit-time demotions, idle fast-forwards) becomes a typed
   span tagged with the replica, the request ids it served, the slot it
-  touched, and the token/byte volume.  These replace the vestigial
-  ``Timeline.events`` ``(kind, dt)`` tuples that used to pile up per
-  stream: the charge stream now lives once, globally, typed.
+  touched, and the token/byte volume.  Recorded in time order, they are
+  what stall attribution bisects.
+
+* **Program spans** — where the serving path's own time goes, nested
+  inside the charge spans and recorded beside them (``cat: "program"``
+  in the export):
+
+  ===================  ==============================================
+  ``sched.iteration``  one ``run_iteration`` call that ran a batch
+                       (scheduler.py); args ``kind`` (prefill /
+                       verify), ``slots`` packed; ``rids`` and
+                       ``tokens`` fed; no parent
+  ``engine.forward``   one fused sub-chunk of ``CloudEngine.feed`` /
+                       ``.prefill`` (engine.py): padding, the
+                       host-to-card copies and the step's launches,
+                       the cache-write index's host sync included;
+                       args ``entry`` (feed / prefill), ``bucket``
+                       width, ``rows_run`` (slots x bucket),
+                       ``rows_real`` (positions >= 0)
+  ``engine.to_host``   one blocking read of a sub-chunk's rows to the
+                       host (the wait on the card, and ``prefill``'s
+                       last-row gather); ``nbytes`` moved
+  ===================  ==============================================
+
+  Each ``engine.*`` span carries its iteration's ``rids`` and names the
+  enclosing ``sched.iteration`` as ``parent`` (the index
+  :meth:`Tracer.span` returned for it).  They are kept in a list of
+  their own, apart from the charge spans, so :meth:`Tracer.window_parts`
+  and hence the stall buckets never see them: they overlap the charge
+  spans of the same iteration, and counting them too would count one
+  stretch of wall time twice, so a window's parts would no longer sum
+  to the window and the buckets would lean to the first parts.  The
+  list has its own ``max_records`` cap, so program spans never crowd
+  out the charge spans that attribution bisects.  They are opt-in:
+  ``VerificationAwareScheduler.set_tracer(tracer, program=True)``
+  records them, a tracer given to the scheduler's constructor (the
+  gateway's, ``run_synera``'s) does not.
 
 * **Per-stream async spans** — each stream is an async track (queued →
   slot assignment → device draft / PI overlap / stall windows → each
@@ -48,24 +84,41 @@ wall-clock serving.  Three artifacts come out of the same event stream:
   ``StreamTimeline.bucket_sum == t_ms`` holds exactly by construction.
 
 Tracing must never change behavior: recording is strictly passive (no
-clock advances, no RNG draws), so token streams are byte-identical with
-tracing on or off.  When disabled, the module-level :data:`NULL_TRACER`
-is installed everywhere and every hot-path call site guards on
-``tracer.enabled`` — the disabled path allocates nothing.
+clock advances, no RNG draws, no read of a device tensor), so token
+streams are byte-identical with tracing on or off.  When disabled, the
+module-level :data:`NULL_TRACER` is installed everywhere and every
+hot-path call site guards on ``tracer.enabled`` — the disabled path
+allocates nothing.  ``VerificationAwareScheduler.set_tracer`` attaches
+or detaches a tracer on a running scheduler, the engine's block
+allocator and its swap manager at once, and with ``program=True`` on
+the engine too.
+
+Clock: a tracer takes an anchor pair (``clock.now_ms``,
+``time.time_ns()``) when it is made.  ``torch.profiler``'s Chrome export
+stamps ``ts`` as ``time.time_ns() / 1e3`` less the file's
+``baseTimeNanoseconds / 1e3``, so :meth:`Tracer.profiler_offset_us`
+turns the anchor into the offset that :meth:`Tracer.to_events` adds to
+land every span of a ``RealClock`` run on a device trace's timebase.
 
 Export is Chrome trace-event JSON (``{"traceEvents": [...]}``) loadable
 in ``ui.perfetto.dev``: one process per replica with an engine track
 plus one track per touched slot, and a ``streams`` process carrying the
-per-stream async spans.  See docs/observability.md.
+per-stream async spans.  docs/observability.md describes the schema
+(written for the reference's ``repro.launch.serve``; the port's
+launcher is ``python -m repro_torch.launch.serve``, with the same
+flags).
 """
 from __future__ import annotations
 
 import json
+import time
 from bisect import bisect_left
 from dataclasses import dataclass
 
 # engine-side span kinds whose cost is a host-swap transfer for a slot
 _SWAP_KINDS = ("swap_out", "swap_in", "swap_demote")
+# program spans: nested inside the charge spans, skipped by window_parts
+PROGRAM_KINDS = ("sched.iteration", "engine.forward", "engine.to_host")
 
 # fixed Prometheus histogram ladder for TTFT/TPOT/E2E (milliseconds)
 HIST_BUCKETS_MS = (5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
@@ -114,7 +167,7 @@ def hist_merge(hists) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Per-stream timeline (absorbs the old serving/link.py Timeline)
+# Per-stream timeline
 # ---------------------------------------------------------------------------
 
 @dataclass
@@ -268,20 +321,27 @@ class Tracer:
 
     One tracer serves a whole fleet: replicas tag their events with
     their index, and with one shared clock (and one engine thread in
-    the gateway) the charge stream is globally chronological — which is
+    the gateway) the charge spans are globally chronological — which is
     what lets :meth:`window_parts` decompose any request's in-flight
     window by bisection.  ``max_records`` bounds memory on long
-    gateway runs: past the cap new engine spans/instants are counted
-    but dropped (attribution then falls back to the ``other`` bucket
-    for windows it can no longer cover)."""
+    gateway runs: past the cap new charge spans, program spans or
+    instants (each kind of record capped apart) are counted but dropped
+    (attribution then falls back to the ``other`` bucket for windows it
+    can no longer cover)."""
 
     def __init__(self, clock, *, max_records: int = 1 << 20):
         self.clock = clock
         self.enabled = True
         self.max_records = max_records
         self.dropped = 0
+        # (clock.now_ms, time.time_ns()): places the spans of a
+        # RealClock run on a device trace's timebase (profiler_offset_us)
+        self.anchor = (clock.now_ms, time.time_ns())
         self._spans = []          # (t0,t1,kind,replica,rids,slot,tokens,nbytes)
         self._span_t0s = []       # parallel array for bisect
+        # program spans, capped apart: (t0,t1,kind,replica,rids,tokens,
+        # nbytes,parent,args)
+        self._program = []
         self._instants = []       # (t, kind, replica, slot, rids, n)
         self._rewinds = []        # (t, replica, rids) — preemption rewinds
         self._streams: dict[int, _StreamRec] = {}
@@ -290,13 +350,34 @@ class Tracer:
     # -- engine-side recording -----------------------------------------
     def span(self, t0: float, t1: float, kind: str, replica: int = 0,
              rids=(), slot: int = -1, tokens: int = 0,
-             nbytes: int = 0) -> None:
+             nbytes: int = 0, parent: int = -1,
+             args: dict | None = None) -> int:
+        """Record one span.  A program span (:data:`PROGRAM_KINDS`) goes
+        to a list of its own and returns its index, which its children
+        name as ``parent`` (-1 when it was dropped past
+        ``max_records``); a charge span returns -1."""
+        if kind in PROGRAM_KINDS:
+            if len(self._program) >= self.max_records:
+                self.dropped += 1
+                return -1
+            self._program.append((t0, t1, kind, replica, rids, tokens,
+                                  nbytes, parent, args))
+            return len(self._program) - 1
         if len(self._spans) >= self.max_records:
             self.dropped += 1
-            return
+            return -1
         self._spans.append((t0, t1, kind, replica, rids, slot, tokens,
                             nbytes))
         self._span_t0s.append(t0)
+        return -1
+
+    def span_end(self, idx: int, t1: float) -> None:
+        """Close program span ``idx``, recorded open (``t1 == t0``) so
+        that its children could name it as their parent before it
+        ended."""
+        if idx >= 0:
+            self._program[idx] = (self._program[idx][0], t1) + \
+                self._program[idx][2:]
 
     def instant(self, kind: str, t: float | None = None, replica: int = 0,
                 slot: int = -1, rids=(), n: int = 0) -> None:
@@ -417,10 +498,23 @@ class Tracer:
     def _us(t_ms: float) -> float:
         return t_ms * 1000.0
 
-    def to_events(self) -> list[dict]:
+    def profiler_offset_us(self, base_ns: int) -> float:
+        """What :meth:`to_events` adds to put this tracer's spans on the
+        timebase of a ``torch.profiler`` Chrome trace whose
+        ``baseTimeNanoseconds`` is ``base_ns``.  Meaningful for a
+        ``RealClock`` (a ``SimClock`` is not wall time)."""
+        t_ms, t_ns = self.anchor
+        return (t_ns - base_ns) / 1e3 - t_ms * 1e3
+
+    def to_events(self, offset_us: float = 0.0) -> list[dict]:
         """Chrome trace-event list: pid 0 carries the per-stream async
         spans; pid ``1 + replica`` carries that replica's engine track
-        (tid 0) and one track per touched slot (tid ``1 + slot``)."""
+        (tid 0) and one track per touched slot (tid ``1 + slot``).
+        Every ``ts`` is the clock's milliseconds in microseconds, plus
+        ``offset_us``."""
+        def us(t_ms):
+            return self._us(t_ms) + offset_us
+
         ev = [{"ph": "M", "name": "process_name", "pid": 0, "tid": 0,
                "args": {"name": "streams"}}]
         replicas, slots = set(), set()
@@ -439,9 +533,27 @@ class Tracer:
             if nbytes:
                 args["nbytes"] = int(nbytes)
             ev.append({"ph": "X", "name": kind, "cat": "engine",
-                       "ts": self._us(t0),
+                       "ts": us(t0),
                        "dur": max(self._us(t1 - t0), 0.0),
                        "pid": 1 + rep, "tid": tid, "args": args})
+        for i, (t0, t1, kind, rep, rids, tokens, nbytes, parent,
+                extra) in enumerate(self._program):
+            replicas.add(rep)
+            args = {"id": i}           # what a child's ``parent`` names
+            if rids:
+                args["rids"] = [int(r) for r in rids]
+            if tokens:
+                args["tokens"] = int(tokens)
+            if nbytes:
+                args["nbytes"] = int(nbytes)
+            if parent >= 0:
+                args["parent"] = parent
+            if extra:
+                args.update(extra)
+            ev.append({"ph": "X", "name": kind, "cat": "program",
+                       "ts": us(t0),
+                       "dur": max(self._us(t1 - t0), 0.0),
+                       "pid": 1 + rep, "tid": 0, "args": args})
         for t, kind, rep, slot, rids, n in self._instants:
             replicas.add(rep)
             tid = 1 + slot if slot >= 0 else 0
@@ -453,28 +565,28 @@ class Tracer:
             if n:
                 args["n"] = int(n)
             ev.append({"ph": "i", "s": "t", "name": kind, "cat": "engine",
-                       "ts": self._us(t), "pid": 1 + rep, "tid": tid,
+                       "ts": us(t), "pid": 1 + rep, "tid": tid,
                        "args": args})
         for rec in self._streams.values():
             sid = str(rec.uid)
             name = f"{rec.name}-{rec.uid}"
             ev.append({"ph": "b", "name": name, "cat": "stream", "id": sid,
-                       "ts": self._us(rec.t0), "pid": 0, "tid": 0,
+                       "ts": us(rec.t0), "pid": 0, "tid": 0,
                        "args": dict(rec.meta)})
             for cname, t0, t1 in rec.children:
                 ev.append({"ph": "b", "name": cname, "cat": "stream",
-                           "id": sid, "ts": self._us(t0), "pid": 0,
+                           "id": sid, "ts": us(t0), "pid": 0,
                            "tid": 0, "args": {}})
                 ev.append({"ph": "e", "name": cname, "cat": "stream",
-                           "id": sid, "ts": self._us(max(t1, t0)),
+                           "id": sid, "ts": us(max(t1, t0)),
                            "pid": 0, "tid": 0, "args": {}})
             for iname, t, n in rec.instants:
                 ev.append({"ph": "n", "name": iname, "cat": "stream",
-                           "id": sid, "ts": self._us(t), "pid": 0,
+                           "id": sid, "ts": us(t), "pid": 0,
                            "tid": 0, "args": ({"n": int(n)} if n else {})})
             t_end = rec.t1 if rec.t1 is not None else rec.t0
             ev.append({"ph": "e", "name": name, "cat": "stream", "id": sid,
-                       "ts": self._us(max(t_end, rec.t0)), "pid": 0,
+                       "ts": us(max(t_end, rec.t0)), "pid": 0,
                        "tid": 0, "args": dict(rec.end_meta or {})})
         for rep in sorted(replicas):
             ev.append({"ph": "M", "name": "process_name", "pid": 1 + rep,
