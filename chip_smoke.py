@@ -623,10 +623,138 @@ def phase_kernels():
     floor = _time_ms(lambda: torch.cuda._sleep(0))
     log(f"[kernels] empty kernel under _time_ms (launch floor): {floor} ms")
     main["attn_with_importance"]["empty_kernel_ms"] = floor
+    phase_slot_index()
     main.update(phase_paged_kernels())
     main.update(phase_ssd_kernel())
     main.update(phase_grouped_mm())
     return main
+
+
+# The slot-indexed partial_prefill (kernel table row 2i) at the chat
+# cells' compacted prefills: B real slots of a 32-slot cache whose other
+# slots hold served streams (64-1,000 keys), each slot's prompt from
+# position 0 filling half to all of the bucket C, S 2,048.  Beside it the
+# unindexed launch over the gathered rows, which it must equal bit for bit,
+# and the full-width launch an uncompacted prefill makes (32 query slots,
+# B of them real).  The first call at each new (B, C) is timed on the
+# host, to the end of the work, against the steady call.
+SLOT_HEADS = (("qwen1.5-7b", 32, 32), ("qwen3-moe", 64, 4))   # hd 128
+SLOT_B = (1, 2, 4)
+SLOT_C = (64, 128, 256)
+SLOT_CACHE = (32, 2048)
+
+
+def _host_ms(fn, iters=1):
+    """Mean host ms of ``fn`` to the end of its device work."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_slot_index():
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import partial_prefill as PP
+    build.library("partial_prefill")    # loaded once, before any timing
+    name = "partial_prefill_attention"
+    n_cache, S = SLOT_CACHE
+    hd, bf16 = 128, torch.bfloat16
+    atol, rtol = TOL[str(bf16)]
+    ok = True
+    for h, (cfg, nh, nkv) in enumerate(SLOT_HEADS):
+        rng = np.random.default_rng(300 + h)
+        gen = torch.Generator(device="cuda").manual_seed(300 + h)
+
+        def randn(*s):
+            return torch.randn(*s, generator=gen, device="cuda").to(bf16)
+
+        k, v = randn(n_cache, S, nkv, hd), randn(n_cache, S, nkv, hd)
+        served = np.full((n_cache, S), -1, np.int32)
+        for b in range(n_cache):
+            n = int(rng.integers(64, 1000))
+            served[b, :n] = np.arange(n)
+        for B in SLOT_B:
+            slots = np.sort(rng.choice(n_cache, B, replace=False))
+            for C in SLOT_C:
+                kp = served.copy()
+                qp = np.full((B, C), -1, np.int32)
+                for i, b in enumerate(slots):
+                    nq = int(rng.integers(C // 2 + 1, C + 1))
+                    kp[b] = -1
+                    kp[b, :nq] = np.arange(nq)
+                    qp[i, :nq] = np.arange(nq)
+                q = randn(B, C, nh, hd)
+                st = torch.from_numpy(slots.astype(np.int32)).cuda()
+                qpt = torch.from_numpy(qp).cuda()
+                kpt = torch.from_numpy(kp).cuda()
+                gl = st.long()
+                g = dict(q=q, k=k[gl].contiguous(), v=v[gl].contiguous(),
+                         q_pos=qpt, kv_pos=kpt[gl].contiguous())
+                qf = torch.zeros(n_cache, C, nh, hd, dtype=bf16,
+                                 device="cuda")
+                qf[gl] = q
+                qpf = torch.full((n_cache, C), -1, dtype=torch.int32,
+                                 device="cuda")
+                qpf[gl] = qpt
+
+                def indexed():
+                    return PP.partial_prefill_attention(q, k, v, qpt, kpt,
+                                                        slots=st)
+
+                def full():
+                    return PP.partial_prefill_attention(qf, k, v, qpf, kpt)
+
+                first_ms = _host_ms(indexed)
+                steady_ms = _host_ms(indexed, iters=20)
+                out = indexed()
+                out_g = PP.partial_prefill_attention(**g)
+                out_f = full()
+                ref = PP.partial_prefill_ref(q, k, v, qpt, kpt, slots=st)
+                torch.cuda.synchronize()
+                good = (torch.equal(out, out_g)
+                        and _close(out, ref, atol, rtol)
+                        and _close(out_f[gl], ref, atol, rtol)
+                        and bool((out[qpt < 0] == 0).all()))
+                valid = _valid(name, g)
+                nbytes, flops = _bytes_flops(
+                    q, g["k"], out.numel() * out.element_size(), valid, nh,
+                    hd, extra_bytes=(qpt.numel() + g["kv_pos"].numel()
+                                     + B) * 4)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_flops = flops / PEAK_FLOPS[str(bf16)] * 1e3
+                lib = _library_call(name, g)
+                rec = dict(
+                    name=name, case=f"{cfg} slots {B} of {n_cache} C={C}",
+                    dtype=str(bf16), shape=[B, C, S, nh, nkv, hd],
+                    slots=slots.tolist(),
+                    launch=dense_launch(name, (B, C, S, nh, nkv)),
+                    full_launch=dense_launch(name, (n_cache, C, S, nh, nkv)),
+                    ok=good,
+                    max_abs_err=float((out.float() - ref.float()).abs()
+                                      .max()),
+                    ms=_time_ms(indexed),
+                    ms_l2_warm=_time_ms(indexed, cold=False),
+                    gathered_ms=_time_ms(
+                        lambda: PP.partial_prefill_attention(**g)),
+                    full_width_ms=_time_ms(full),
+                    first_call_host_ms=first_ms,
+                    steady_host_ms=steady_ms,
+                    plain_ms=_time_ms(lambda: PP.partial_prefill_ref(
+                        q, k, v, qpt, kpt, slots=st), iters=5),
+                    library_ms=_time_ms(lib),
+                    bound_ms=max(t_bytes, t_flops),
+                    bound_by="bytes" if t_bytes >= t_flops else
+                    "operations")
+                log("[kernels 2i] " + json.dumps(rec))
+                ok = ok and good
+        del k, v
+    if not ok:
+        raise RuntimeError("the slot-indexed partial_prefill disagrees with "
+                           "the gathered rows or its plain version")
 
 
 # Paged kernels.  Shapes: (B, C, nh, nkv, hd, block size, max_bps, pool

@@ -34,7 +34,7 @@ SIGNATURES = {
         "decode_gqa_paged_launch": [_P] * 10 + [_I] * 10 + [_P],
     },
     "partial_prefill": {
-        "partial_prefill_launch": [_P] * 9 + [_I] * 9 + [_P],
+        "partial_prefill_launch": [_P] * 10 + [_I] * 9 + [_P],
         "partial_prefill_paged_launch": [_P] * 10 + [_I] * 11 + [_P],
     },
     "attn_importance": {

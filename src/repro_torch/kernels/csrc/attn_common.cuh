@@ -148,16 +148,19 @@ inline cudaError_t attn_set_smem(Kernel kernel, size_t bytes) {
 // a paged block walks its whole list.
 // ---------------------------------------------------------------------------
 
-// Dense cache: k, v (B, S, nkv, hd); positions (B, S).
+// Dense cache: k, v (B', S, nkv, hd); positions (B', S).  Query slot b
+// reads cache row slots[b] when a slot index is given (a forward over
+// some of the cache's slots), else row b (B' = B).
 struct DenseKV {
   static constexpr bool kCutsList = true;
   const int* pos;
   int S, nkv;
+  const int* slots;  // nullable
   int b_, kvh_;
 
   static int table_ints(int /*split_entries*/) { return 0; }
   __device__ void bind(int b, int kvh, int /*split*/, int* /*tbl_s*/) {
-    b_ = b;
+    b_ = slots ? slots[b] : b;
     kvh_ = kvh;
   }
   __device__ int lo() const { return 0; }

@@ -161,7 +161,7 @@ __global__ void __launch_bounds__(kThreads)
     qmin = min(qmin, __shfl_xor_sync(ATTN_FULL_MASK, qmin, o));
     qmax = max(qmax, __shfl_xor_sync(ATTN_FULL_MASK, qmax, o));
   }
-  DenseKV kv{kv_pos, S, nkv};
+  DenseKV kv{kv_pos, S, nkv, nullptr};
   kv.bind(b, kvh, 0, nullptr);
   // padded rows only: no key is seen.  Without the causal mask a row
   // sees every written key.

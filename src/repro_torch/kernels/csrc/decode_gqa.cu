@@ -260,7 +260,7 @@ extern "C" int decode_gqa_launch(const void* q, const void* k, const void* v,
                                  void* stream) {
   if (nkv <= 0 || nh % nkv != 0 || splits <= 0 || (splits > 1 && !ws_acc))
     return (int)cudaErrorInvalidValue;
-  DenseKV kv{static_cast<const int*>(kv_pos), S, nkv};
+  DenseKV kv{static_cast<const int*>(kv_pos), S, nkv, nullptr};
   ATTN_DISPATCH_DTYPE(dtype, ATTN_DISPATCH_HD(hd, return launch<T, HD>(
       q, k, v, q_pos, kv, out, static_cast<float*>(ws_m),
       static_cast<float*>(ws_l), static_cast<float*>(ws_acc), B, nh, nkv,

@@ -522,21 +522,24 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos,
 
 }  // namespace
 
-// q (B, C, nh, hd); k, v (B, S, nkv, hd); q_pos (B, C) int32; kv_pos
-// (B, S) int32; out (B, C, nh, hd).  splits: the host's split-KV count
+// q (B, C, nh, hd); k, v (B', S, nkv, hd); q_pos (B, C) int32; kv_pos
+// (B', S) int32; out (B, C, nh, hd).  slots: null (B' = B), or (B,) int32
+// cache rows, query slot b attending over cache row slots[b] (a forward
+// over some of the cache's slots).  splits: the host's split-KV count
 // (kernels/splits.py); with splits > 1, ws_m, ws_l (B * nkv, splits, g *
 // C) and ws_acc (B * nkv, splits, g * C, hd) are f32 scratch.  All
 // contiguous, on one device, q, k and v 16-byte aligned.
 extern "C" int partial_prefill_launch(const void* q, const void* k,
                                       const void* v, const void* q_pos,
-                                      const void* kv_pos, void* out,
-                                      void* ws_m, void* ws_l, void* ws_acc,
-                                      int B, int C, int S, int nh, int nkv,
-                                      int hd, int splits, int window,
-                                      int dtype, void* stream) {
+                                      const void* kv_pos, const void* slots,
+                                      void* out, void* ws_m, void* ws_l,
+                                      void* ws_acc, int B, int C, int S,
+                                      int nh, int nkv, int hd, int splits,
+                                      int window, int dtype, void* stream) {
   if (nkv <= 0 || nh % nkv != 0 || splits <= 0 || (splits > 1 && !ws_acc))
     return (int)cudaErrorInvalidValue;
-  DenseKV kv{static_cast<const int*>(kv_pos), S, nkv};
+  DenseKV kv{static_cast<const int*>(kv_pos), S, nkv,
+             static_cast<const int*>(slots)};
   ATTN_DISPATCH_DTYPE(dtype, ATTN_DISPATCH_HD(hd, return launch<T, HD>(
       q, k, v, q_pos, kv, out, static_cast<float*>(ws_m),
       static_cast<float*>(ws_l), static_cast<float*>(ws_acc), B, C, nh, nkv,

@@ -24,9 +24,14 @@ launches = 0          # partial_prefill_attention
 paged_launches = 0    # partial_prefill_attention_paged
 
 
-def partial_prefill_ref(q, k, v, q_pos, kv_pos, *, window: int = 0):
+def partial_prefill_ref(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                        slots=None):
     """q: (B, C, nh, hd); k, v: (B, S, nkv, hd); q_pos: (B, C); kv_pos:
-    (B, S), -1 = invalid.  Returns (B, C, nh, hd) in q's dtype."""
+    (B, S), -1 = invalid.  With ``slots`` (B,) int32, k, v and kv_pos
+    hold more slots (B', S, ...) and query slot b attends over cache row
+    ``slots[b]``.  Returns (B, C, nh, hd) in q's dtype."""
+    if slots is not None:
+        k, v, kv_pos = k[slots], v[slots], kv_pos[slots]
     B, C, nh, hd = q.shape
     nkv = k.shape[2]
     g = nh // nkv
@@ -46,26 +51,38 @@ def partial_prefill_ref(q, k, v, q_pos, kv_pos, *, window: int = 0):
     return out.reshape(B, C, nh, hd).to(q.dtype)
 
 
-def partial_prefill_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
+def partial_prefill_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                              slots=None):
     """Same contract as :func:`partial_prefill_ref`; launches the CUDA
     kernel for CUDA tensors, cut into ``splits.dense_splits`` KV splits
     (f32 partials merged by a second kernel when there is more than
-    one)."""
+    one).  The kernel reads ``slots`` on the card: the cache is never
+    gathered."""
     global launches
-    if on_cpu(q, k, v, q_pos, kv_pos):
-        return partial_prefill_ref(q, k, v, q_pos, kv_pos, window=window)
+    if on_cpu(q, k, v, q_pos, kv_pos,
+              *(() if slots is None else (slots,))):
+        return partial_prefill_ref(q, k, v, q_pos, kv_pos, window=window,
+                                   slots=slots)
     B, C, nh, hd = q.shape
-    S, nkv = k.shape[1], k.shape[2]
-    if k.shape != (B, S, nkv, hd) or v.shape != k.shape:
+    Bk, S, nkv = k.shape[0], k.shape[1], k.shape[2]
+    if slots is None and Bk != B:
+        raise ValueError(f"partial_prefill_attention: k/v hold {Bk} slots, "
+                         f"q {B}, and no slot index is given")
+    if slots is not None and (slots.shape != (B,)
+                              or slots.dtype != torch.int32):
+        raise ValueError(f"partial_prefill_attention: slots must be ({B},) "
+                         f"int32, got {tuple(slots.shape)} {slots.dtype}")
+    if k.shape != (Bk, S, nkv, hd) or v.shape != k.shape:
         raise ValueError(f"partial_prefill_attention: k/v {tuple(k.shape)} "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if q_pos.shape != (B, C) or kv_pos.shape != (B, S):
+    if q_pos.shape != (B, C) or kv_pos.shape != (Bk, S):
         raise ValueError("partial_prefill_attention: positions must be "
-                         "(B, C), (B, S)")
+                         "(B, C), (k's slots, S)")
     if nh % nkv:
         raise ValueError(f"partial_prefill_attention: nh {nh} % nkv {nkv}")
-    code = check_kernel_inputs("partial_prefill_attention", (q, k, v),
-                               (q_pos, kv_pos))
+    code = check_kernel_inputs(
+        "partial_prefill_attention", (q, k, v),
+        (q_pos, kv_pos) + (() if slots is None else (slots,)))
     SP.check_aligned("partial_prefill_attention", q, k, v)
     rows = (nh // nkv) * C
     splits = SP.dense_splits(B, nkv, rows, S, SP.sm_count(q.device))
@@ -73,8 +90,9 @@ def partial_prefill_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
     ws = PG.split_workspace(B * nkv, splits, rows, hd, q.device)
     fn = build.library("partial_prefill").partial_prefill_launch
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-             kv_pos.data_ptr(), out.data_ptr(), *PG.workspace_ptrs(ws), B, C,
-             S, nh, nkv, hd, splits, int(window), code, stream_ptr(q))
+             kv_pos.data_ptr(), None if slots is None else slots.data_ptr(),
+             out.data_ptr(), *PG.workspace_ptrs(ws), B, C, S, nh, nkv, hd,
+             splits, int(window), code, stream_ptr(q))
     raise_on_error("partial_prefill_attention", err)
     launches += 1
     return out

@@ -167,7 +167,8 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, block_kv: int = 1024,
 
 
 def pallas_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                     causal: bool = True, return_importance: bool = False):
+                     causal: bool = True, return_importance: bool = False,
+                     slots=None):
     """Dispatch to the hand-written kernels (``cfg.attn_impl ==
     "pallas"``), exactly as the reference dispatches its Pallas kernels:
 
@@ -179,8 +180,15 @@ def pallas_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
     None of them has a gradient (the reference's Pallas kernels have no
     ``custom_vjp``; a CUDA kernel's output here has no ``grad_fn``), so
     inputs that autograd would track are refused, on every device.
+
+    ``slots`` (B,) int32: q holds B of the cache's slots, query slot b
+    those of cache row ``slots[b]`` (see :func:`attention`).
+    ``partial_prefill`` reads the index on the card; the other two
+    kernels, which no slot-indexed forward calls, take the gathered rows.
     """
     refuse_grad("pallas_attention", q, k, v)
+    if slots is not None and (return_importance or q.shape[1] == 1):
+        k, v, kv_pos, slots = k[slots], v[slots], kv_pos[slots], None
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
@@ -195,7 +203,10 @@ def pallas_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
         out = decode_attention(q[:, 0], k, v, q_pos[:, 0].contiguous(),
                                kv_pos, window=window)
         return out[:, None], None
-    out = partial_prefill_attention(q, k, v, q_pos, kv_pos, window=window)
+    if slots is not None:
+        slots = slots.to(torch.int32).contiguous()
+    out = partial_prefill_attention(q, k, v, q_pos, kv_pos, window=window,
+                                    slots=slots)
     return out, None
 
 
@@ -245,17 +256,27 @@ def _sharded_attention(q, k, v, q_pos, kv_pos, **kw):
 
 def attention(q, k, v, q_pos, kv_pos, *, impl: str = "blocked",
               block_kv: int = 1024, window: int = 0, causal: bool = True,
-              return_importance: bool = False):
+              return_importance: bool = False, slots=None):
+    """q (B, T, nh, hd) over k, v (B, S, nkv, hd) and kv_pos (B, S).  With
+    ``slots`` (B,) int, k, v and kv_pos are a cache of more slots and
+    query slot b attends over cache row ``slots[b]``: the hand-written
+    kernel reads the index, the plain paths attend over the gathered
+    rows."""
     if isinstance(q, DTensor):
         if return_importance:
             raise ValueError("importance over DTensors is not supported")
+        if slots is not None:
+            raise ValueError("a slot index over DTensors is not supported")
         return _sharded_attention(q, k, v, q_pos, kv_pos, impl=impl,
                                   block_kv=block_kv, window=window,
                                   causal=causal)
     if impl == "pallas" and causal:
         return pallas_attention(q, k, v, q_pos, kv_pos, window=window,
                                 causal=causal,
-                                return_importance=return_importance)
+                                return_importance=return_importance,
+                                slots=slots)
+    if slots is not None:
+        k, v, kv_pos = k[slots], v[slots], kv_pos[slots]
     if return_importance or impl == "naive":
         return naive_attention(q, k, v, q_pos, kv_pos, window=window,
                                causal=causal,
@@ -274,15 +295,18 @@ def is_paged(cache) -> bool:
     return cache is not None and "block_tables" in cache
 
 
-def cache_write_index(positions, s_max: int):
-    """Where ``cache_write`` puts each token: ``(b_idx, t_idx, slot)`` for
-    the non-negative positions only.  Negative positions mark padding and
-    are dropped here -- the reference routes them to an out-of-bounds
-    slot that XLA's scatter silently drops; torch indexing would raise
-    instead.  Computed once per forward and shared by every layer (one
-    host sync on CUDA).  ``meta`` positions (a shape-only trace) hold no
-    padding to drop: every token is written.  For DTensor positions
-    :func:`cache_write` computes each rank's index itself (None)."""
+def cache_write_index(positions, s_max: int, slots=None):
+    """Where ``cache_write`` puts each token: ``(b_idx, t_idx, row, slot)``
+    for the non-negative positions only: new K/V (b_idx, t_idx) goes to
+    cache row ``row`` -- ``slots[b_idx]`` when the forward runs over the
+    cache rows ``slots``, else b_idx -- at ``slot``.  Negative positions
+    mark padding and are dropped here -- the reference routes them to an
+    out-of-bounds slot that XLA's scatter silently drops; torch indexing
+    would raise instead.  Computed once per forward and shared by every
+    layer (one host sync on CUDA).  ``meta`` positions (a shape-only
+    trace) hold no padding to drop: every token is written.  For DTensor
+    positions :func:`cache_write` computes each rank's index itself
+    (None)."""
     if isinstance(positions, DTensor):
         return None
     if positions.is_meta:
@@ -291,7 +315,8 @@ def cache_write_index(positions, s_max: int):
         t_idx = torch.arange(T, device="meta").repeat(B)
     else:
         b_idx, t_idx = (positions >= 0).nonzero(as_tuple=True)
-    return b_idx, t_idx, positions[b_idx, t_idx].long() % s_max
+    row = b_idx if slots is None else slots[b_idx].long()
+    return b_idx, t_idx, row, positions[b_idx, t_idx].long() % s_max
 
 
 def _cache_write_sharded(cache, k_new, v_new, positions):
@@ -307,31 +332,35 @@ def _cache_write_sharded(cache, k_new, v_new, positions):
     s_loc = ck.to_local().shape[1]
     shard_s = [i for i, p in enumerate(pl) if p.is_shard(1)]
     first = shardctx.mesh_coord(mesh, shard_s) * s_loc   # this rank's slots
-    b_idx, t_idx, slot = cache_write_index(pos, ck.shape[1])
+    b_idx, t_idx, row, slot = cache_write_index(pos, ck.shape[1])
     if shard_s:
         # (a meta trace cannot select: each rank counts every token)
         if not pos.is_meta:
             own = (slot >= first) & (slot < first + s_loc)
-            b_idx, t_idx, slot = b_idx[own], t_idx[own], slot[own]
+            b_idx, t_idx, row, slot = (b_idx[own], t_idx[own], row[own],
+                                       slot[own])
         slot = slot - first
     cache_write({k: v.to_local() for k, v in cache.items()}, kn, vn, pos,
-                (b_idx, t_idx, slot))
+                (b_idx, t_idx, row, slot))
     return cache
 
 
 def cache_write(cache, k_new, v_new, positions, index=None):
     """Write new K/V in place at slots ``positions % s_max`` (circular
-    when windowed).  Padding (position -1) never touches the cache.
-    ``index`` is :func:`cache_write_index` for these positions, when the
-    caller already has it.  Returns ``cache``."""
+    when windowed).  Padding (position -1) never touches the cache.  A
+    cache with a ``slots`` leaf is written at rows ``slots[b]`` (see
+    :func:`cache_write_index`).  ``index`` is :func:`cache_write_index`
+    for these positions, when the caller already has it.  Returns
+    ``cache``."""
     if isinstance(cache["k"], DTensor):
         return _cache_write_sharded(cache, k_new, v_new, positions)
     if index is None:
-        index = cache_write_index(positions, cache["k"].shape[1])
-    b_idx, t_idx, slot = index
-    cache["k"][b_idx, slot] = k_new[b_idx, t_idx].to(cache["k"].dtype)
-    cache["v"][b_idx, slot] = v_new[b_idx, t_idx].to(cache["v"].dtype)
-    cache["pos"][b_idx, slot] = positions[b_idx, t_idx].to(torch.int32)
+        index = cache_write_index(positions, cache["k"].shape[1],
+                                  cache.get("slots"))
+    b_idx, t_idx, row, slot = index
+    cache["k"][row, slot] = k_new[b_idx, t_idx].to(cache["k"].dtype)
+    cache["v"][row, slot] = v_new[b_idx, t_idx].to(cache["v"].dtype)
+    cache["pos"][row, slot] = positions[b_idx, t_idx].to(torch.int32)
     return cache
 
 
@@ -502,7 +531,8 @@ def attn_block(p, x, positions, cfg, cache=None, *, kv_pos=None, causal=True,
 
     x: (B, T, d).  If ``cache`` is given, new K/V are written into it (in
     place) and attention runs over the whole buffer (a paged cache
-    through its block table).  ``write_index`` is the cache's write index
+    through its block table; a dense cache with a ``slots`` leaf at rows
+    ``slots[b]``).  ``write_index`` is the cache's write index
     for ``positions`` (:func:`cache_write_index` or
     :func:`paged_write_index`), when the caller already has it.
     Returns (out, cache, importance).
@@ -548,7 +578,8 @@ def attn_block(p, x, positions, cfg, cache=None, *, kv_pos=None, causal=True,
     out, imp = attention(
         q, k_all, v_all, positions, kv_positions,
         impl=cfg.attn_impl, block_kv=cfg.attn_block_kv, window=window,
-        causal=causal, return_importance=return_importance)
+        causal=causal, return_importance=return_importance,
+        slots=None if cache is None else cache.get("slots"))
     out = shardctx.merge_heads(out) @ p["wo"]
     return row_parallel_out(out), cache, imp
 

@@ -319,10 +319,32 @@ def layer_slice(tree, *index: int):
     """Layer ``index`` of a stacked parameter or cache tree (views): one
     index for a layer stack, two (round, layer) for the hybrid's
     ``mamba_rounds`` and the vlm's ``self_layers``.  A paged cache's
-    ``block_tables`` has no layer axis and is shared as is."""
+    ``block_tables`` and a slot view's ``slots`` have no layer axis and
+    are shared as they are."""
     return {k: layer_slice(v, *index) if isinstance(v, dict)
-            else v if k == "block_tables" else v[index]
+            else v if k in ("block_tables", "slots") else v[index]
             for k, v in tree.items()}
+
+
+def slot_view(cache, slots):
+    """The cache as a forward over its batch rows ``slots`` ((n,) int32 on
+    the cache's device) sees it, sharing the cache's tensors: each dense
+    KV stack gains a ``slots`` leaf (its writes and attention address row
+    ``slots[b]``), each paged stack's ``block_tables`` is cut to those
+    rows (its kernels already address a slot by its table row).  None
+    when some stack holds per-slot state that neither addresses: the
+    cross-attention K/V of the vlm and audio families, SSM states."""
+    if L.is_paged(cache):
+        return dict(cache, block_tables=cache["block_tables"][slots])
+    if "pos" in cache:
+        return dict(cache, slots=slots)
+    out = {}
+    for k, v in cache.items():
+        view = slot_view(v, slots) if isinstance(v, dict) else None
+        if view is None:
+            return None
+        out[k] = view
+    return out
 
 
 def _training(tree) -> bool:
@@ -468,7 +490,8 @@ def _write_index(positions, stack):
     if L.is_paged(stack):
         return L.paged_write_index(positions, stack["block_tables"],
                                    stack["k"].shape[-3])
-    return L.cache_write_index(positions, stack["k"].shape[-3])
+    return L.cache_write_index(positions, stack["k"].shape[-3],
+                               stack.get("slots"))
 
 
 def _uniform_stack(cfg, params, h, positions, cache, *, window, ret_imp,

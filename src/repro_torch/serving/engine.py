@@ -679,12 +679,13 @@ class CloudEngine:
         self._raw_verify = make_verify_step(cfg, window=window)
         self._raw_decode = make_decode_step(cfg, window=window)
         # telemetry: host transfer + shape accounting; forwards of the
-        # fused step and the rows they ran (slots x bucket) and carried a
-        # position (>= 0), by entry point
+        # fused step, the slots they ran, their rows (slots x bucket) and
+        # those that carried a position (>= 0), by entry point
         self.bytes_to_host = 0
         self._calls = {"feed": 0, "prefill": 0, "decode": 0,
                        "feed_logits": 0, "decode_logits": 0}
         self._forwards = {"feed": 0, "prefill": 0}
+        self._slots_run = {"feed": 0, "prefill": 0}
         self._rows_run = {"feed": 0, "prefill": 0}
         self._rows_real = {"feed": 0, "prefill": 0}
         self._specializations: set = set()
@@ -715,12 +716,15 @@ class CloudEngine:
     def compile_stats(self) -> dict:
         """Which (step, bucket) shapes this engine ran, how often each
         entry point ran — the bucket ladder bounds the set of shapes —
-        and, for ``feed`` and ``prefill``, the fused forwards they ran
-        and those forwards' rows: all (``rows_run``, padding included)
-        and those with a position (``rows_real``)."""
+        and, for ``feed`` and ``prefill``, the fused forwards they ran,
+        the slots those forwards ran (``slots_run``: a prefill runs only
+        the slots with a position in its sub-chunk) and their rows: all
+        (``rows_run``, slots x bucket, padding included) and those with a
+        position (``rows_real``)."""
         return dict(
             calls=dict(self._calls),
             forwards=dict(self._forwards),
+            slots_run=dict(self._slots_run),
             rows_run=dict(self._rows_run),
             rows_real=dict(self._rows_real),
             buckets=sorted({b for kind, b in self._specializations
@@ -987,10 +991,11 @@ class CloudEngine:
         return np.pad(arr, ((0, 0), (0, pad)), constant_values=fill)
 
     def _run_fused(self, tokens, positions, targets, sel_idx, last_local,
-                   with_dists=True, *, entry: str):
-        """One fused sub-chunk of ``entry`` (``feed`` / ``prefill``);
-        returns device outputs.  Callers copy to the host only what they
-        need."""
+                   with_dists=True, *, entry: str, cache=None):
+        """One fused sub-chunk of ``entry`` (``feed`` / ``prefill``) over
+        ``cache`` (default the engine's; a :func:`models.model.slot_view`
+        of it when the batch holds some of its slots); returns device
+        outputs.  Callers copy to the host only what they need."""
         tr = self.tracer
         if tr.enabled:
             t0 = tr.clock.now_ms
@@ -998,13 +1003,14 @@ class CloudEngine:
         Cb = self._bucket_of(C)
         real = int((positions >= 0).sum())
         self._forwards[entry] += 1
+        self._slots_run[entry] += B
         self._rows_run[entry] += B * Cb
         self._rows_real[entry] += real
         self._specializations.add(
             ("fused" if with_dists else "fused_greedy", Cb))
         step = self._step if with_dists else self._step_greedy
-        out, self.cache = step(
-            self.params, self.cache,
+        out, _ = step(
+            self.params, self.cache if cache is None else cache,
             self._dev(self._pad(tokens, Cb, 0), torch.long),
             self._dev(self._pad(positions, Cb, -1)),
             self._dev(self._pad(targets, Cb, -1)),
@@ -1013,8 +1019,8 @@ class CloudEngine:
             tr.span(t0, tr.clock.now_ms, "engine.forward",
                     replica=self.trace_replica, rids=self.trace_rids,
                     parent=self.trace_parent,
-                    args={"entry": entry, "bucket": Cb, "rows_run": B * Cb,
-                          "rows_real": real})
+                    args={"entry": entry, "bucket": Cb, "slots": B,
+                          "rows_run": B * Cb, "rows_real": real})
         return out
 
     def _to_host_span(self, t0: float, nbytes: int) -> None:
@@ -1085,7 +1091,12 @@ class CloudEngine:
         """Prompt prefill over all slots.  Returns each slot's LAST valid
         row's full logits (max_slots, V) — gathered on device, one
         vocab-row per slot — and writes the cache.  Slots with no valid
-        positions return zeros."""
+        positions return zeros.
+
+        Each sub-chunk's forward runs only the slots with a position in
+        it, through a slot view of the cache (``models.model.slot_view``),
+        unless the cache holds per-slot state the view cannot address:
+        then, or when every slot has a position, all slots run."""
         self._calls["prefill"] += 1
         self._ensure_blocks(positions)
         B, C = tokens.shape
@@ -1093,27 +1104,35 @@ class CloudEngine:
         # last valid column per slot (-1 = idle)
         last_col = np.where(valid.any(axis=1),
                             C - 1 - np.argmax(valid[:, ::-1], axis=1), -1)
-        targets = np.full((B, C), -1, np.int32)
-        no_sel = np.full((B, self.verify_rows_max), -1, np.int32)
         out = np.zeros((B, self.vocab), np.float32)
         for off, w in self._chunks(C):
             sl = slice(off, off + w)
-            if not (positions[:, sl] >= 0).any():
+            slots = np.flatnonzero(valid[:, sl].any(axis=1))
+            if slots.size == 0:
                 continue
-            local = np.clip(last_col - off, 0, w - 1).astype(np.int32)
+            view = None
+            if slots.size < B:
+                view = M.slot_view(self.cache, self._dev(slots))
+            if view is None:
+                slots = np.arange(B)
+            n = slots.size
+            local = np.clip(last_col[slots] - off, 0, w - 1).astype(np.int32)
             # only the last-row gather is consumed: the argmax-only step
-            res = self._run_fused(tokens[:, sl], positions[:, sl],
-                                  targets[:, sl], no_sel, local,
-                                  with_dists=False, entry="prefill")
-            sel = (last_col >= off) & (last_col < off + w)
+            res = self._run_fused(tokens[slots, sl], positions[slots, sl],
+                                  np.full((n, w), -1, np.int32),
+                                  np.full((n, self.verify_rows_max), -1,
+                                          np.int32),
+                                  local, with_dists=False, entry="prefill",
+                                  cache=view)
+            sel = (last_col[slots] >= off) & (last_col[slots] < off + w)
             if sel.any():
                 # gather on device only the slots whose LAST prompt row
                 # lives in this sub-chunk: one vocab row per prefilled slot
                 if self.tracer.enabled:
                     t0 = self.tracer.clock.now_ms
-                idx = np.where(sel)[0]
+                idx = np.flatnonzero(sel)
                 rows = _host(res[4][self._dev(idx, torch.long)], np.float32)
-                out[idx] = rows
+                out[slots[idx]] = rows
                 self.bytes_to_host += rows.nbytes
                 if self.tracer.enabled:
                     self._to_host_span(t0, rows.nbytes)

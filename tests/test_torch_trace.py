@@ -121,10 +121,14 @@ def test_engine_spans_lie_inside_their_iteration(pair):
         reads = [e for e in kids if e["name"] == "engine.to_host"]
         assert all(e["args"]["nbytes"] > 0 for e in reads)
         assert reads or it["args"]["kind"] == "verify"
-        # a span's rows: slots x bucket, of which those with a position
+        # a span's rows: the slots it ran x bucket (a prefill runs only
+        # the slots with a position), of which those with a position
         for e in fwd:
             a = e["args"]
-            assert a["rows_run"] == 4 * a["bucket"] >= a["rows_real"] > 0
+            assert a["rows_run"] == a["slots"] * a["bucket"]
+            assert a["rows_run"] >= a["rows_real"] > 0
+            assert (a["slots"] == 4 if a["entry"] == "feed"
+                    else 0 < a["slots"] <= 4)
 
 
 def test_chosen_tokens_and_counters_same_with_tracer_on_and_off(pair):
@@ -141,6 +145,7 @@ def test_chosen_tokens_and_counters_same_with_tracer_on_and_off(pair):
     for entry in ("feed", "prefill"):
         mine = [a for a in fwd if a["entry"] == entry]
         assert stats["forwards"][entry] == len(mine) > 0
+        assert stats["slots_run"][entry] == sum(a["slots"] for a in mine)
         assert stats["rows_run"][entry] == sum(a["rows_run"] for a in mine)
         assert stats["rows_real"][entry] == sum(a["rows_real"] for a in mine)
     assert stats["rows_real"]["prefill"] == sum(map(len, PROMPTS))

@@ -327,7 +327,7 @@ def check_partial_prefill() -> bool:
             ws = _workspace(B * nkv, splits, nh // nkv * C, hd)
             out = torch.full_like(q, float("nan"))
             _call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  qpt.data_ptr(), kpt.data_ptr(), out.data_ptr(),
+                  qpt.data_ptr(), kpt.data_ptr(), None, out.data_ptr(),
                   *(_ptr(t) for t in ws), B, C, S, nh, nkv, hd, splits, 0,
                   DTYPE_CODES[dtype], None)
             ref = PP.partial_prefill_ref(q, k, v, qpt, kpt)
@@ -335,6 +335,59 @@ def check_partial_prefill() -> bool:
             good = e <= TOL[dtype] and bool((out[qpt < 0] == 0).all())
             ok &= _report(f"partial_prefill {B, C, S, nh, nkv, hd} "
                           f"splits={splits} {dtype}", {"out": e}, good)
+    return ok & check_partial_prefill_slots(fn)
+
+
+def check_partial_prefill_slots(fn) -> bool:
+    """The slot index: B query slots over a cache of more slots, query
+    slot b on cache row ``slots[b]``, must give the same bits as the
+    unindexed launch on the gathered rows (the rows no query reads hold
+    keys too)."""
+    ok = True
+    # (B, C, S, nh, nkv, hd, cache slots, splits)
+    for B, C, S, nh, nkv, hd, n_cache, splits in (
+            (2, 16, 128, 4, 4, 128, 5, 1), (1, 16, 160, 8, 2, 64, 4, 2),
+            (2, 8, 128, 64, 4, 128, 3, 2)):
+        rng = np.random.default_rng(1)
+        kp = np.full((n_cache, S), -1, np.int32)
+        qp = np.full((B, C), -1, np.int32)
+        # descending: no query slot reads its own row
+        slots = np.sort(rng.choice(n_cache, B, replace=False))[::-1].astype(
+            np.int32)
+        for b in range(n_cache):
+            n = int(rng.integers(C, S))
+            kp[b, :n] = np.arange(n)
+        for i, b in enumerate(slots):
+            n = int(rng.integers(20, S - C))
+            nq = int(rng.integers(1, C + 1))
+            kp[b] = -1
+            kp[b, :n + nq] = np.arange(n + nq)
+            qp[i, :nq] = n + np.arange(nq)
+        qpt, kpt = torch.from_numpy(qp), torch.from_numpy(kp)
+        st = torch.from_numpy(slots)
+        gk = st.long()
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(1)
+            q, k, v = (torch.randn(*s, generator=g).to(dtype) for s in (
+                (B, C, nh, hd), (n_cache, S, nkv, hd), (n_cache, S, nkv, hd)))
+            outs = []
+            for kk, vv, pp, sp in ((k, v, kpt, st.data_ptr()),
+                                   (k[gk].contiguous(), v[gk].contiguous(),
+                                    kpt[gk].contiguous(), None)):
+                ws = _workspace(B * nkv, splits, nh // nkv * C, hd)
+                out = torch.full_like(q, float("nan"))
+                _call(fn, q.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+                      qpt.data_ptr(), pp.data_ptr(), sp, out.data_ptr(),
+                      *(_ptr(t) for t in ws), B, C, S, nh, nkv, hd, splits,
+                      0, DTYPE_CODES[dtype], None)
+                outs.append(out)
+            ref = PP.partial_prefill_ref(q, k, v, qpt, kpt, slots=st)
+            e = float((outs[0].float() - ref.float()).abs().max())
+            good = (e <= TOL[dtype] and torch.equal(outs[0], outs[1])
+                    and bool((outs[0][qpt < 0] == 0).all()))
+            ok &= _report(f"partial_prefill slots={slots.tolist()} of "
+                          f"{n_cache} {B, C, S, nh, nkv, hd} splits={splits} "
+                          f"{dtype}", {"out": e}, good)
     return ok
 
 
